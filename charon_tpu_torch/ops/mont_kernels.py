@@ -1,0 +1,313 @@
+"""Hand-written CUDA kernels K1-K3 for Hopper: wrappers, plain versions,
+launch counts, and the nvcc build.
+
+The counterpart of charon_tpu/ops/pallas_mont.py. Each TPU kernel there
+has one kernel here, written in CUDA C++ for sm_90a (charon_tpu_torch/csrc):
+
+  K1 mont_mul (Fp and Fr)  <- pallas_mont.mont_mul_pallas   (csrc/mont_mul.cu)
+  K2 fp2_mul               <- pallas_mont.fp2_mul_pallas    (csrc/fp2.cu)
+  K3 fp2_sqr               <- pallas_mont.fp2_sqr_pallas    (csrc/fp2.cu)
+
+Beside each wrapper is its plain PyTorch version: the int64 limb algorithm
+of limb.mont_mul and the Fp2 formulas. A wrapper takes the plain version
+only for a tensor that lies on the CPU; for a CUDA tensor it launches the
+kernel or raises — there is no fallback. Every launch adds one to its
+kernel's entry in LAUNCHES, so a run can show which kernels it went
+through.
+
+Build: every csrc/*.cu compiles with nvcc into its own shared library with
+a plain C interface (loaded with ctypes), all sources at once, at the first
+launch or by calling build(). Libraries land in charon_tpu_torch/_build,
+named by a digest of their sources and flags, so a changed source is
+rebuilt and an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from charon_tpu_torch.ops import limb
+from charon_tpu_torch.ops.limb import ModCtx
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# source file -> {exported kernel function: number of tensor pointers}
+_SOURCES = {
+    "mont_mul.cu": {"charon_mont_mul": 3},
+    "fp2.cu": {"charon_fp2_mul": 6, "charon_fp2_sqr": 4},
+}
+
+# Launches per kernel since the last reset_launches().
+LAUNCHES = {"mont_mul_fp": 0, "mont_mul_fr": 0, "fp2_mul": 0, "fp2_sqr": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc (default /usr/local/cuda),
+    else nvcc on PATH."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to a CUDA toolkit")
+    return found
+
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for dep in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        h.update(dep.read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> dict[str, str]:
+    """Compile every kernel source, one nvcc process per source, all
+    started together. Returns {source: nvcc's report} (register, shared
+    memory and spill counts from -Xptxas -v); "cached" for a library that
+    was already built from the same sources."""
+    nvcc = None
+    procs = {}
+    reports = {}
+    for source in _SOURCES:
+        out = _lib_path(source)
+        if out.exists() and not force:
+            reports[source] = "cached"
+            continue
+        if nvcc is None:
+            nvcc = nvcc_path()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        procs[source] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out)
+    failed = []
+    for source, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        reports[source] = text
+        if proc.returncode != 0:
+            failed.append(f"{source} (nvcc exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return reports
+
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded shared library of one kernel source (built on first use),
+    with its C signatures declared."""
+    with _LOCK:
+        lib = _LOADED.get(source)
+        if lib is None:
+            path = _lib_path(source)
+            if not path.exists():
+                build()
+            lib = ctypes.CDLL(str(path))
+            for fn, n_ptrs in _SOURCES[source].items():
+                f = getattr(lib, fn)
+                # pointers..., rows, n_limbs, modulus limbs, pinv, stream
+                f.argtypes = [ctypes.c_void_p] * n_ptrs + [
+                    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int64, ctypes.c_void_p,
+                ]
+                f.restype = ctypes.c_int
+            err = getattr(lib, f"charon_{Path(source).stem}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LOADED[source] = lib
+        return lib
+
+
+def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors) -> None:
+    """Check the CUDA operands (inputs then outputs, one shape), launch on
+    the current stream, and raise on a refused launch."""
+    ref = tensors[0]
+    for t in tensors:
+        if t.device != ref.device or t.device.type != "cuda":
+            raise ValueError(f"{kernel}: operands must share one CUDA device")
+        if t.dtype != limb.DTYPE:
+            raise TypeError(f"{kernel}: limbs must be int64, got {t.dtype}")
+        if t.shape != ref.shape or t.shape[-1] != ctx.n_limbs:
+            raise ValueError(f"{kernel}: bad operand shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operands must be contiguous")
+    rows = ref.numel() // ctx.n_limbs
+    if rows == 0:
+        return
+    lib = library(source)
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = getattr(lib, fn)(
+            *(t.data_ptr() for t in tensors), rows, ctx.n_limbs,
+            ctx.limbs.ctypes.data, ctx.pinv, stream,
+        )
+    if rc != 0:
+        msg = getattr(lib, f"charon_{Path(source).stem}_error_string")(rc)
+        raise RuntimeError(f"{kernel} launch failed: {msg.decode()} ({rc})")
+    LAUNCHES[kernel] += 1
+
+
+def _operands(tensors):
+    """Broadcast operands to one shape on one device."""
+    tensors = torch.broadcast_tensors(*tensors)
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("operands lie on different devices")
+    return tensors, dev.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# K1: Montgomery product
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _band(n: int, out_cols: int, device: torch.device):
+    """idx[i, k] = k - i clipped into range, valid[i, k] = 0 <= k-i < n:
+    the schoolbook product as one gather + broadcast-multiply + sum."""
+    i = np.arange(n)[:, None]
+    k = np.arange(out_cols)[None, :]
+    j = k - i
+    valid = (j >= 0) & (j < n)
+    idx = np.where(valid, j, 0)
+    return (
+        torch.as_tensor(idx, dtype=torch.long, device=device),
+        torch.as_tensor(valid, device=device),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _const_band(ctx: ModCtx, what: str, out_cols: int, device: torch.device):
+    """Banded matrix B[i, k] = c[k - i] of a constant operand c."""
+    idx, valid = _band(ctx.n_limbs, out_cols, device)
+    c = limb.ctx_const(ctx, what, device)
+    return torch.where(valid, c[idx], 0)
+
+
+def _conv(ctx: ModCtx, a, b, out_cols: int):
+    """t[..., k] = sum_{i+j=k} a_i * b_j over out_cols columns, as a
+    broadcast multiply and a sum (CUDA has no int64 matmul)."""
+    idx, valid = _band(ctx.n_limbs, out_cols, a.device)
+    b_shift = torch.where(valid, b[..., idx], 0)  # (..., n, out_cols)
+    return (a.unsqueeze(-1) * b_shift).sum(-2)
+
+
+def _conv_const(ctx: ModCtx, a, what: str, out_cols: int):
+    band = _const_band(ctx, what, out_cols, a.device)
+    return (a.unsqueeze(-1) * band).sum(-2)
+
+
+def mont_mul_plain(ctx: ModCtx, a, b):
+    """a * b * R^-1 mod m, the separated-operand algorithm of the JAX
+    package's limb.mont_mul, step for step:
+
+        t = a * b                      (conv, 2n columns)
+        m = (t mod R) * (-m^-1 mod R)  (low conv, n columns)
+        s = t + m * p                  (conv + add; s = 0 mod R)
+        result = s / R  (high half)    (< 2m, one conditional subtract,
+                                        fused into the last normalize)
+    """
+    n = ctx.n_limbs
+    t = _conv(ctx, a, b, 2 * n)
+    t, _ = limb._normalize(ctx, t)
+    m = _conv_const(ctx, t[..., :n], "ninv", n)
+    m, _ = limb._normalize(ctx, m)  # mod R: top carry intentionally dropped
+    s = t + _conv_const(ctx, m, "p", 2 * n)
+    rm_hi = limb.ctx_const(ctx, "r_minus_m_hi", s.device)
+    out, carry = limb._normalize(ctx, torch.stack([s, s + rm_hi]))
+    return torch.where((carry[1] == 1).unsqueeze(-1), out[1, ..., n:], out[0, ..., n:])
+
+
+def mont_mul(ctx: ModCtx, a, b):
+    """a * b * R^-1 mod m for reduced Montgomery-form limb tensors."""
+    (a, b), on_cpu = _operands((a, b))
+    if on_cpu:
+        return mont_mul_plain(ctx, a, b)
+    if ctx.limb_bits != limb.LIMB_BITS or ctx.n_limbs not in (11, 16):
+        raise ValueError(f"K1 has no instance for {ctx.name}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    _launch("mont_mul.cu", "charon_mont_mul", ctx, f"mont_mul_{ctx.name}", (a, b, out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: fused Fp2 multiply and square
+# ---------------------------------------------------------------------------
+
+
+def fp2_mul_plain(ctx: ModCtx, a0, a1, b0, b1):
+    """Plain version of K2 (Karatsuba): c0 = a0 b0 - a1 b1,
+    c1 = (a0 + a1)(b0 + b1) - (a0 b0 + a1 b1)."""
+    ta, tb = limb.add_mod_many(ctx, [(a0, a1), (b0, b1)])
+    v0, v1, s = mont_mul_plain(ctx, torch.stack([a0, a1, ta]), torch.stack([b0, b1, tb]))
+    v01 = limb.add_mod(ctx, v0, v1)
+    c0, c1 = limb.sub_mod_many(ctx, [(v0, v1), (s, v01)])
+    return c0, c1
+
+
+def fp2_sqr_plain(ctx: ModCtx, a0, a1):
+    """Plain version of K3: c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1."""
+    [ta], [ts] = limb.addsub_mod_many(ctx, [(a0, a1)], [(a0, a1)])
+    c0, w = mont_mul_plain(ctx, torch.stack([ta, a0]), torch.stack([ts, a1]))
+    return c0, limb.add_mod(ctx, w, w)
+
+
+def _check_fp2_ctx(ctx: ModCtx, kernel: str) -> None:
+    if ctx.limb_bits != limb.LIMB_BITS or ctx.n_limbs != 16:
+        raise ValueError(f"{kernel} has no instance for {ctx.name}")
+
+
+def fp2_mul(ctx: ModCtx, a, b):
+    """Fused Fp2 product of (c0, c1) limb-tensor pairs."""
+    (a0, a1, b0, b1), on_cpu = _operands((a[0], a[1], b[0], b[1]))
+    if on_cpu:
+        return fp2_mul_plain(ctx, a0, a1, b0, b1)
+    _check_fp2_ctx(ctx, "fp2_mul")
+    ins = [x.contiguous() for x in (a0, a1, b0, b1)]
+    c0, c1 = torch.empty_like(ins[0]), torch.empty_like(ins[0])
+    _launch("fp2.cu", "charon_fp2_mul", ctx, "fp2_mul", (*ins, c0, c1))
+    return c0, c1
+
+
+def fp2_sqr(ctx: ModCtx, a):
+    """Fused Fp2 square of a (c0, c1) limb-tensor pair."""
+    (a0, a1), on_cpu = _operands((a[0], a[1]))
+    if on_cpu:
+        return fp2_sqr_plain(ctx, a0, a1)
+    _check_fp2_ctx(ctx, "fp2_sqr")
+    ins = [x.contiguous() for x in (a0, a1)]
+    c0, c1 = torch.empty_like(ins[0]), torch.empty_like(ins[0])
+    _launch("fp2.cu", "charon_fp2_sqr", ctx, "fp2_sqr", (*ins, c0, c1))
+    return c0, c1
