@@ -38,7 +38,7 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (on-chip-measurement guide table): HBM rate, and the
+# H100 SXM peaks (published datasheet figures): HBM rate, and the
 # int32 multiply-add rate — half the 67 TFLOP/s non-tensor fp32 rate,
 # since Hopper issues IMAD at half the FFMA rate; a multiply-add counts
 # as two operations.
