@@ -10,8 +10,9 @@ place of Python ints:
 
 Every function takes the Fp ModCtx first. Independent operations of one
 dependency level are stacked into one call: fp2 muls and squares of a level
-go to one launch each of the fused kernels K2/K3 (ops/mont_kernels.py), and
-adds/subs to one stacked normalize (limb.addsub_mod_many).
+go to one launch each of the fused kernels K2/K3 (ops/mont_kernels.py; K5/K6
+with the int8 route on), and adds/subs to one stacked normalize
+(limb.addsub_mod_many).
 
 Multiplication counts (in Fp Montgomery products): fp2_mul 3 (Karatsuba),
 fp2_sqr 2, fp6_mul 18, fp12_mul 54, fp12_cyclotomic_sqr 18 (Granger-Scott).
@@ -166,26 +167,28 @@ def fp2_batch(ctx, ops):
 
       ("mul", a, b)    -> a * b          (K2: fused Karatsuba, 3 base muls)
       ("sqr", a)       -> a^2            (K3: fused square, 2 base muls)
-      ("mul_fp", a, s) -> (a0*s, a1*s)   (K1; s is an Fp element)
+      ("mul_fp", a, s) -> (a0*s, a1*s)   (limb.mont_mul; s is an Fp element)
 
-    Each kind runs as ONE launch over a new leading stack axis. Returns the
-    fp2 results in order."""
+    With the int8 route on (limb.set_mxu) muls go to K5 and squares to K6,
+    and limb.mont_mul takes mul_fp to K4. Each kind runs as ONE launch over
+    a new leading stack axis. Returns the fp2 results in order."""
     out = [None] * len(ops)
     muls = [(i, op) for i, op in enumerate(ops) if op[0] == "mul"]
     sqrs = [(i, op) for i, op in enumerate(ops) if op[0] == "sqr"]
     mulfps = [(i, op) for i, op in enumerate(ops) if op[0] == "mul_fp"]
     if len(muls) + len(sqrs) + len(mulfps) != len(ops):
         raise ValueError("unknown fp2_batch op")
+    mxu = limb._mxu_active(ctx)
     if muls:
         a0, a1, b0, b1 = _stacked(
             [x for _, (_, a, b) in muls for x in (a[0], a[1], b[0], b[1])], 4
         )
-        c0, c1 = MK.fp2_mul(ctx, (a0, a1), (b0, b1))
+        c0, c1 = (MK.fp2_mul_mxu if mxu else MK.fp2_mul)(ctx, (a0, a1), (b0, b1))
         for j, (i, _) in enumerate(muls):
             out[i] = (c0[j], c1[j])
     if sqrs:
         a0, a1 = _stacked([x for _, (_, a) in sqrs for x in (a[0], a[1])], 2)
-        c0, c1 = MK.fp2_sqr(ctx, (a0, a1))
+        c0, c1 = (MK.fp2_sqr_mxu if mxu else MK.fp2_sqr)(ctx, (a0, a1))
         for j, (i, _) in enumerate(sqrs):
             out[i] = (c0[j], c1[j])
     if mulfps:

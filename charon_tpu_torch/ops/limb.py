@@ -15,8 +15,9 @@ the end (asserted in make_ctx). Signed int64 is exact here because nothing
 relies on unsigned wrap: subtraction is `a + (mask - b) + one0`.
 
 Every Fp and Fr multiply goes through `mont_mul`, which is the K1 kernel
-wrapper (ops/mont_kernels.py): the hand-written CUDA kernel for a CUDA
-tensor, its plain PyTorch version for a CPU tensor.
+wrapper (ops/mont_kernels.py) — or, with the int8 route on (`set_mxu`), the
+K4 wrapper: the hand-written CUDA kernel for a CUDA tensor, its plain
+PyTorch version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -341,11 +342,39 @@ def const(ctx: ModCtx, value: int, batch_shape=(), device="cpu"):
 # ---------------------------------------------------------------------------
 
 
+def has_kernel_instance(ctx: ModCtx) -> bool:
+    """The Montgomery kernels (K1, K4) are instantiated for the port's two
+    contexts: 24-bit limbs, FP's 16 and FR's 11."""
+    return ctx.limb_bits == LIMB_BITS and ctx.n_limbs in (FP.n_limbs, FR.n_limbs)
+
+
+# int8 tensor-core route (ops/limb_mxu.py, kernels K4-K6): off by default,
+# as in the reference. The startup tuner owns it through
+# core/autotune.KernelConfig; the CHARON_MXU_MONT deploy pin folds in
+# there, so this hot path never reads the environment.
+_MXU_MODE: bool | None = None
+
+
+def set_mxu(mode: bool | None) -> None:
+    global _MXU_MODE
+    _MXU_MODE = mode
+
+
+def _mxu_active(ctx: ModCtx) -> bool:
+    """Whether ctx's products take the int8 route. The reference tests for
+    its 12-bit geometry; the port's test is whether K4 has an instance for
+    ctx, so FP and FR both take the route, as FP32 and FR32 do on the TPU."""
+    return bool(_MXU_MODE) and has_kernel_instance(ctx)
+
+
 def mont_mul(ctx: ModCtx, a, b):
-    """a * b * R^-1 mod m for reduced Montgomery-form inputs: kernel K1 on
-    a CUDA tensor, its plain version on a CPU tensor."""
+    """a * b * R^-1 mod m for reduced Montgomery-form inputs: kernel K1, or
+    K4 with the int8 route on, on a CUDA tensor; its plain version on a CPU
+    tensor."""
     from charon_tpu_torch.ops import mont_kernels
 
+    if _mxu_active(ctx):
+        return mont_kernels.mont_mul_mxu(ctx, a, b)
     return mont_kernels.mont_mul(ctx, a, b)
 
 

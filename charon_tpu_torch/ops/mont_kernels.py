@@ -1,17 +1,24 @@
-"""Hand-written CUDA kernels K1-K3 for Hopper: wrappers, plain versions,
+"""Hand-written CUDA kernels K1-K6 for Hopper: wrappers, plain versions,
 launch counts, and the nvcc build.
 
 The counterpart of charon_tpu/ops/pallas_mont.py. Each TPU kernel there
 has one kernel here, written in CUDA C++ for sm_90a (charon_tpu_torch/csrc):
 
-  K1 mont_mul (Fp and Fr)  <- pallas_mont.mont_mul_pallas   (csrc/mont_mul.cu)
-  K2 fp2_mul               <- pallas_mont.fp2_mul_pallas    (csrc/fp2.cu)
-  K3 fp2_sqr               <- pallas_mont.fp2_sqr_pallas    (csrc/fp2.cu)
+  K1 mont_mul (Fp and Fr)      <- mont_mul_pallas             (csrc/mont_mul.cu)
+  K2 fp2_mul                   <- fp2_mul_pallas              (csrc/fp2.cu)
+  K3 fp2_sqr                   <- fp2_sqr_pallas              (csrc/fp2.cu)
+  K4 mont_mul_mxu (Fp and Fr)  <- mont_mul_pallas(mxu=True)   (csrc/mont_mxu.cu)
+  K5 fp2_mul_mxu               <- fp2_mul_pallas(mxu=True)    (csrc/fp2_mxu.cu)
+  K6 fp2_sqr_mxu               <- fp2_sqr_pallas(mxu=True)    (csrc/fp2_mxu.cu)
+
+K4-K6 run the two constant convolutions of every Montgomery product on the
+int8 tensor cores (ops/limb_mxu.py); limb.set_mxu, owned by
+core/autotune.KernelConfig, routes the products to them.
 
 Beside each wrapper is its plain PyTorch version: the int64 limb algorithm
-of limb.mont_mul and the Fp2 formulas. A wrapper takes the plain version
-only for a tensor that lies on the CPU; for a CUDA tensor it launches the
-kernel or raises — there is no fallback. Every launch adds one to its
+of limb.mont_mul (K4: limb_mxu.mont_mul_mxu) and the Fp2 formulas. A
+wrapper takes the plain version only for a tensor that lies on the CPU; for
+a CUDA tensor it launches the kernel or raises — there is no fallback. Every launch adds one to its
 kernel's entry in LAUNCHES, so a run can show which kernels it went
 through.
 
@@ -36,7 +43,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from charon_tpu_torch.ops import limb
+from charon_tpu_torch.ops import limb, limb_mxu
 from charon_tpu_torch.ops.limb import ModCtx
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -46,14 +53,23 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# source file -> {exported kernel function: number of tensor pointers}
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# After the operand pointers: rows, n_limbs, modulus limbs (host), pinv,
+# stream. K4-K6 take the int8 piece tables (device) between the two.
+_TAIL = [_I64, _INT, _PTR, _I64, _PTR]
+# source file -> {exported kernel function: its C signature}
 _SOURCES = {
-    "mont_mul.cu": {"charon_mont_mul": 3},
-    "fp2.cu": {"charon_fp2_mul": 6, "charon_fp2_sqr": 4},
+    "mont_mul.cu": {"charon_mont_mul": [_PTR] * 3 + _TAIL},
+    "fp2.cu": {"charon_fp2_mul": [_PTR] * 6 + _TAIL, "charon_fp2_sqr": [_PTR] * 4 + _TAIL},
+    "mont_mxu.cu": {"charon_mont_mul_mxu": [_PTR] * 4 + _TAIL},
+    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TAIL},
 }
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"mont_mul_fp": 0, "mont_mul_fr": 0, "fp2_mul": 0, "fp2_sqr": 0}
+LAUNCHES = {
+    "mont_mul_fp": 0, "mont_mul_fr": 0, "fp2_mul": 0, "fp2_sqr": 0,
+    "mont_mul_mxu_fp": 0, "mont_mul_mxu_fr": 0, "fp2_mul_mxu": 0, "fp2_sqr_mxu": 0,
+}
 
 
 def reset_launches() -> None:
@@ -134,13 +150,9 @@ def library(source: str) -> ctypes.CDLL:
             if not path.exists():
                 build()
             lib = ctypes.CDLL(str(path))
-            for fn, n_ptrs in _SOURCES[source].items():
+            for fn, argtypes in _SOURCES[source].items():
                 f = getattr(lib, fn)
-                # pointers..., rows, n_limbs, modulus limbs, pinv, stream
-                f.argtypes = [ctypes.c_void_p] * n_ptrs + [
-                    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int64, ctypes.c_void_p,
-                ]
+                f.argtypes = argtypes
                 f.restype = ctypes.c_int
             err = getattr(lib, f"charon_{Path(source).stem}_error_string")
             err.argtypes = [ctypes.c_int]
@@ -149,9 +161,10 @@ def library(source: str) -> ctypes.CDLL:
         return lib
 
 
-def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors) -> None:
+def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: bool = False) -> None:
     """Check the CUDA operands (inputs then outputs, one shape), launch on
-    the current stream, and raise on a refused launch."""
+    the current stream, and raise on a refused launch. `tables` passes the
+    int8 piece tables of ctx on the operands' device (K4-K6)."""
     ref = tensors[0]
     for t in tensors:
         if t.device != ref.device or t.device.type != "cuda":
@@ -166,10 +179,11 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors) -> None:
     if rows == 0:
         return
     lib = library(source)
+    extra = (limb_mxu.device_tables(ctx, ref.device).data_ptr(),) if tables else ()
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         rc = getattr(lib, fn)(
-            *(t.data_ptr() for t in tensors), rows, ctx.n_limbs,
+            *(t.data_ptr() for t in tensors), *extra, rows, ctx.n_limbs,
             ctx.limbs.ctypes.data, ctx.pinv, stream,
         )
     if rc != 0:
@@ -244,44 +258,90 @@ def mont_mul_plain(ctx: ModCtx, a, b):
     m = _conv_const(ctx, t[..., :n], "ninv", n)
     m, _ = limb._normalize(ctx, m)  # mod R: top carry intentionally dropped
     s = t + _conv_const(ctx, m, "p", 2 * n)
+    return _mont_tail(ctx, s)
+
+
+def _mont_tail(ctx: ModCtx, s):
+    """s = 0 mod R in accumulator range -> the reduced high half s / R,
+    with the conditional subtract fused into the last normalize: the twin
+    lane adds (R - m) into the high columns, and its carry says s/R >= m."""
+    n = ctx.n_limbs
     rm_hi = limb.ctx_const(ctx, "r_minus_m_hi", s.device)
     out, carry = limb._normalize(ctx, torch.stack([s, s + rm_hi]))
     return torch.where((carry[1] == 1).unsqueeze(-1), out[1, ..., n:], out[0, ..., n:])
 
 
-def mont_mul(ctx: ModCtx, a, b):
-    """a * b * R^-1 mod m for reduced Montgomery-form limb tensors."""
+def _mont_kernel(source: str, fn: str, kernel: str, plain, ctx: ModCtx, a, b, tables: bool):
+    """One Montgomery-product launch over broadcast operands: the plain
+    version on the CPU, else the kernel writing a fresh output."""
     (a, b), on_cpu = _operands((a, b))
     if on_cpu:
-        return mont_mul_plain(ctx, a, b)
-    if ctx.limb_bits != limb.LIMB_BITS or ctx.n_limbs not in (11, 16):
-        raise ValueError(f"K1 has no instance for {ctx.name}")
+        return plain(ctx, a, b)
+    if not limb.has_kernel_instance(ctx):
+        raise ValueError(f"{kernel} has no instance for {ctx.name}")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
-    _launch("mont_mul.cu", "charon_mont_mul", ctx, f"mont_mul_{ctx.name}", (a, b, out))
+    _launch(source, fn, ctx, f"{kernel}_{ctx.name}", (a, b, out), tables=tables)
     return out
 
 
+def mont_mul(ctx: ModCtx, a, b):
+    """a * b * R^-1 mod m for reduced Montgomery-form limb tensors (K1)."""
+    return _mont_kernel("mont_mul.cu", "charon_mont_mul", "mont_mul", mont_mul_plain, ctx, a, b, False)
+
+
 # ---------------------------------------------------------------------------
-# K2 / K3: fused Fp2 multiply and square
+# K4: Montgomery product with the constant convolutions on int8 tensor cores
+# ---------------------------------------------------------------------------
+
+mont_mul_mxu_plain = limb_mxu.mont_mul_mxu
+
+
+def mont_mul_mxu(ctx: ModCtx, a, b):
+    """a * b * R^-1 mod m for reduced Montgomery-form limb tensors (K4)."""
+    return _mont_kernel("mont_mxu.cu", "charon_mont_mul_mxu", "mont_mul_mxu", mont_mul_mxu_plain, ctx, a, b, True)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 and K5 / K6: fused Fp2 multiply and square
 # ---------------------------------------------------------------------------
 
 
-def fp2_mul_plain(ctx: ModCtx, a0, a1, b0, b1):
-    """Plain version of K2 (Karatsuba): c0 = a0 b0 - a1 b1,
-    c1 = (a0 + a1)(b0 + b1) - (a0 b0 + a1 b1)."""
+def _fp2_mul_math(ctx: ModCtx, mont, a0, a1, b0, b1):
+    """Karatsuba: c0 = a0 b0 - a1 b1, c1 = (a0 + a1)(b0 + b1) - (a0 b0 +
+    a1 b1), with `mont` the Montgomery product's plain version."""
     ta, tb = limb.add_mod_many(ctx, [(a0, a1), (b0, b1)])
-    v0, v1, s = mont_mul_plain(ctx, torch.stack([a0, a1, ta]), torch.stack([b0, b1, tb]))
+    v0, v1, s = mont(ctx, torch.stack([a0, a1, ta]), torch.stack([b0, b1, tb]))
     v01 = limb.add_mod(ctx, v0, v1)
     c0, c1 = limb.sub_mod_many(ctx, [(v0, v1), (s, v01)])
     return c0, c1
 
 
-def fp2_sqr_plain(ctx: ModCtx, a0, a1):
-    """Plain version of K3: c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1."""
+def _fp2_sqr_math(ctx: ModCtx, mont, a0, a1):
+    """c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1."""
     [ta], [ts] = limb.addsub_mod_many(ctx, [(a0, a1)], [(a0, a1)])
-    c0, w = mont_mul_plain(ctx, torch.stack([ta, a0]), torch.stack([ts, a1]))
+    c0, w = mont(ctx, torch.stack([ta, a0]), torch.stack([ts, a1]))
     return c0, limb.add_mod(ctx, w, w)
+
+
+def fp2_mul_plain(ctx: ModCtx, a0, a1, b0, b1):
+    """Plain version of K2."""
+    return _fp2_mul_math(ctx, mont_mul_plain, a0, a1, b0, b1)
+
+
+def fp2_sqr_plain(ctx: ModCtx, a0, a1):
+    """Plain version of K3."""
+    return _fp2_sqr_math(ctx, mont_mul_plain, a0, a1)
+
+
+def fp2_mul_mxu_plain(ctx: ModCtx, a0, a1, b0, b1):
+    """Plain version of K5: K2's formula over K4's product."""
+    return _fp2_mul_math(ctx, mont_mul_mxu_plain, a0, a1, b0, b1)
+
+
+def fp2_sqr_mxu_plain(ctx: ModCtx, a0, a1):
+    """Plain version of K6: K3's formula over K4's product."""
+    return _fp2_sqr_math(ctx, mont_mul_mxu_plain, a0, a1)
 
 
 def _check_fp2_ctx(ctx: ModCtx, kernel: str) -> None:
@@ -289,25 +349,34 @@ def _check_fp2_ctx(ctx: ModCtx, kernel: str) -> None:
         raise ValueError(f"{kernel} has no instance for {ctx.name}")
 
 
-def fp2_mul(ctx: ModCtx, a, b):
-    """Fused Fp2 product of (c0, c1) limb-tensor pairs."""
-    (a0, a1, b0, b1), on_cpu = _operands((a[0], a[1], b[0], b[1]))
+def _fp2_kernel(source: str, fn: str, kernel: str, plain, ctx: ModCtx, operands, tables: bool):
+    """One fused Fp2 launch over broadcast operands: the plain version on
+    the CPU, else the kernel writing two fresh outputs."""
+    operands, on_cpu = _operands(operands)
     if on_cpu:
-        return fp2_mul_plain(ctx, a0, a1, b0, b1)
-    _check_fp2_ctx(ctx, "fp2_mul")
-    ins = [x.contiguous() for x in (a0, a1, b0, b1)]
+        return plain(ctx, *operands)
+    _check_fp2_ctx(ctx, kernel)
+    ins = [x.contiguous() for x in operands]
     c0, c1 = torch.empty_like(ins[0]), torch.empty_like(ins[0])
-    _launch("fp2.cu", "charon_fp2_mul", ctx, "fp2_mul", (*ins, c0, c1))
+    _launch(source, fn, ctx, kernel, (*ins, c0, c1), tables=tables)
     return c0, c1
+
+
+def fp2_mul(ctx: ModCtx, a, b):
+    """Fused Fp2 product of (c0, c1) limb-tensor pairs (K2)."""
+    return _fp2_kernel("fp2.cu", "charon_fp2_mul", "fp2_mul", fp2_mul_plain, ctx, (*a, *b), False)
 
 
 def fp2_sqr(ctx: ModCtx, a):
-    """Fused Fp2 square of a (c0, c1) limb-tensor pair."""
-    (a0, a1), on_cpu = _operands((a[0], a[1]))
-    if on_cpu:
-        return fp2_sqr_plain(ctx, a0, a1)
-    _check_fp2_ctx(ctx, "fp2_sqr")
-    ins = [x.contiguous() for x in (a0, a1)]
-    c0, c1 = torch.empty_like(ins[0]), torch.empty_like(ins[0])
-    _launch("fp2.cu", "charon_fp2_sqr", ctx, "fp2_sqr", (*ins, c0, c1))
-    return c0, c1
+    """Fused Fp2 square of a (c0, c1) limb-tensor pair (K3)."""
+    return _fp2_kernel("fp2.cu", "charon_fp2_sqr", "fp2_sqr", fp2_sqr_plain, ctx, tuple(a), False)
+
+
+def fp2_mul_mxu(ctx: ModCtx, a, b):
+    """Fused Fp2 product with int8 tensor-core Montgomery products (K5)."""
+    return _fp2_kernel("fp2_mxu.cu", "charon_fp2_mul_mxu", "fp2_mul_mxu", fp2_mul_mxu_plain, ctx, (*a, *b), True)
+
+
+def fp2_sqr_mxu(ctx: ModCtx, a):
+    """Fused Fp2 square with int8 tensor-core Montgomery products (K6)."""
+    return _fp2_kernel("fp2_mxu.cu", "charon_fp2_sqr_mxu", "fp2_sqr_mxu", fp2_sqr_mxu_plain, ctx, tuple(a), True)

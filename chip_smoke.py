@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (charon_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8]
+    python3 chip_smoke.py [--validators 1024] [--default-validators 64]
+                          [--seed 1] [--workers 8]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
-  2. the kernel build from charon_tpu_torch/csrc (nvcc -Xptxas -v report);
-  3. every kernel of the main path (K1 Fp, K1 Fr, K2, K3) against its plain
-     PyTorch version on the same CUDA tensors, at main-path row counts, on
-     seeded reduced inputs plus edge values — exactly equal — with each
-     kernel's time beside its plain version's and its bound;
-  4. the main path: a 1k-validator 4-of-7 attestation duty through
+  2. the kernel build from charon_tpu_torch/csrc, one nvcc per source, all
+     at once (nvcc -Xptxas -v report: registers, spills), and the count of
+     int8 tensor-core (IMMA) instructions in K4-K6's SASS;
+  3. every kernel (K1 Fp, K1 Fr, K2, K3, and the int8 tensor-core K4 Fp,
+     K4 Fr, K5, K6) against its plain PyTorch version on the same CUDA
+     tensors at 8192, 65533 and 65536 rows, on seeded reduced inputs plus
+     edge values — exactly equal — and K4-K6 against K1-K3 on the same
+     operands; each kernel's time (alone, through its wrapper, plain)
+     beside its bound;
+  4. the startup tuner on the card: autotune.resolve("force") over the
+     mxu_mont axis (K1 vs K4), its timings and its choice;
+  5. the int8 configuration's duty at full width: KernelConfig(mxu_mont=
+     True).apply(), then a 1k-validator 4-of-7 attestation duty through
      TorchImpl (verify 4096 partials by grouped RLC, a forged lane found by
      the per-lane re-check, Lagrange recombination of 1024 group
-     signatures checked against host recombination, and verification of
-     the group signatures), with each stage's wall time and each kernel's
-     launch count over the duty — every kernel must have launched;
-  5. a torch.profiler trace of two main-path loop bodies (kernel time,
-     idle share, top kernels);
-  6. the kernels JSON line, then the result line.
+     signatures checked against host recombination, verification of the
+     group signatures), with each stage's wall time and each kernel's
+     launches — K4 Fp, K4 Fr, K5 and K6 must launch, K1-K3 never;
+  6. the default configuration's duty (KernelConfig()) at a reduced depth
+     from the same host setup — K1-K3 must launch, K4-K6 never;
+  7. a torch.profiler trace of two main-path loop bodies under each
+     configuration (kernel time, idle share, top kernels);
+  8. the kernels JSON line, then the result line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -38,22 +48,43 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (published datasheet figures): HBM rate, and the
-# int32 multiply-add rate — half the 67 TFLOP/s non-tensor fp32 rate,
-# since Hopper issues IMAD at half the FFMA rate; a multiply-add counts
-# as two operations.
+# Peaks of the NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit
+# (NVIDIA's data sheet, dense): HBM rate; the int32
+# multiply-add rate, half the 67 TFLOP/s non-tensor fp32 rate, since Hopper
+# issues IMAD at half the FFMA rate, a multiply-add counted as two
+# operations; and the int8 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+INT8_TC_OPS_PER_S = 1979e12
+
+
+def _cios(n: int) -> int:
+    """Limb multiply-adds of K1's CIOS product: a b, q p, and q."""
+    return 2 * n * n + n
+
+
+def _tc(n: int) -> int:
+    """int8 multiply-adds of K4's two constant convolutions: four piece
+    products over 2n 12-bit halves, into 2n and 4n columns."""
+    return 4 * (2 * n) * (2 * n + 4 * n)
+
 
 # name -> (replaces, source, C function, operands in, operands out, limb
-# products per element)
+# multiply-adds per element on the CUDA cores, int8 multiply-adds per
+# element on the tensor cores)
 KERNELS = {
-    "mont_mul_fp": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, 2 * 16 * 16 + 16),
-    "mont_mul_fr": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, 2 * 11 * 11 + 11),
-    "fp2_mul": ("charon_tpu/ops/pallas_mont.py:466", "fp2.cu", "charon_fp2_mul", 4, 2, 3 * (2 * 16 * 16 + 16)),
-    "fp2_sqr": ("charon_tpu/ops/pallas_mont.py:475", "fp2.cu", "charon_fp2_sqr", 2, 2, 2 * (2 * 16 * 16 + 16)),
+    "mont_mul_fp": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, _cios(16), 0),
+    "mont_mul_fr": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, _cios(11), 0),
+    "fp2_mul": ("charon_tpu/ops/pallas_mont.py:466", "fp2.cu", "charon_fp2_mul", 4, 2, 3 * _cios(16), 0),
+    "fp2_sqr": ("charon_tpu/ops/pallas_mont.py:475", "fp2.cu", "charon_fp2_sqr", 2, 2, 2 * _cios(16), 0),
+    "mont_mul_mxu_fp": ("charon_tpu/ops/pallas_mont.py:264", "mont_mxu.cu", "charon_mont_mul_mxu", 2, 1, 16 * 16, _tc(16)),
+    "mont_mul_mxu_fr": ("charon_tpu/ops/pallas_mont.py:264", "mont_mxu.cu", "charon_mont_mul_mxu", 2, 1, 11 * 11, _tc(11)),
+    "fp2_mul_mxu": ("charon_tpu/ops/pallas_mont.py:289", "fp2_mxu.cu", "charon_fp2_mul_mxu", 4, 2, 3 * 16 * 16, 3 * _tc(16)),
+    "fp2_sqr_mxu": ("charon_tpu/ops/pallas_mont.py:324", "fp2_mxu.cu", "charon_fp2_sqr_mxu", 2, 2, 2 * 16 * 16, 2 * _tc(16)),
 }
-CHECK_ROWS = (8192, 65536)
+INT8_KERNELS = tuple(k for k in KERNELS if "_mxu" in k)
+DEFAULT_KERNELS = tuple(k for k in KERNELS if "_mxu" not in k)
+CHECK_ROWS = (8192, 65533, 65536)
 TIMED_ROWS = 65536
 DUTY_MESSAGES = 8
 
@@ -84,7 +115,7 @@ def _operands(name, rows, seed, device):
     import torch
     from charon_tpu_torch.ops import limb
 
-    ctx = limb.FR if name == "mont_mul_fr" else limb.FP
+    ctx = limb.FR if name.endswith("_fr") else limb.FP
     n_in = KERNELS[name][3]
     m = ctx.modulus
     edge = [0, 1, m - 1, m - 2, ctx.r_mont, m // 2]
@@ -101,18 +132,20 @@ def _operands(name, rows, seed, device):
 
 
 def _run(name, ctx, ops, plain: bool):
+    """One call of kernel `name`'s wrapper (or its plain version)."""
     from charon_tpu_torch.ops import mont_kernels as MK
 
-    if name.startswith("mont_mul"):
-        fn = MK.mont_mul_plain if plain else MK.mont_mul
-        return (fn(ctx, ops[0], ops[1]),)
-    if name == "fp2_mul":
-        if plain:
-            return MK.fp2_mul_plain(ctx, *ops)
-        return MK.fp2_mul(ctx, (ops[0], ops[1]), (ops[2], ops[3]))
+    base = name.removesuffix("_fp").removesuffix("_fr")
     if plain:
-        return MK.fp2_sqr_plain(ctx, *ops)
-    return MK.fp2_sqr(ctx, (ops[0], ops[1]))
+        if base.startswith("mont_mul"):
+            return (getattr(MK, base + "_plain")(ctx, ops[0], ops[1]),)
+        return getattr(MK, base + "_plain")(ctx, *ops)
+    fn = getattr(MK, base)
+    if base.startswith("mont_mul"):
+        return (fn(ctx, ops[0], ops[1]),)
+    if base.startswith("fp2_mul"):
+        return fn(ctx, (ops[0], ops[1]), (ops[2], ops[3]))
+    return fn(ctx, (ops[0], ops[1]))
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -133,12 +166,15 @@ def _raw_launcher(name, ctx, ops):
     """A closure that launches the kernel alone — the C entry point with
     fixed pointers — so the timed loop holds no wrapper overhead."""
     import torch
+    from charon_tpu_torch.ops import limb_mxu
     from charon_tpu_torch.ops import mont_kernels as MK
 
-    _, source, fn_name, _, n_out, _ = KERNELS[name]
+    _, source, fn_name, _, n_out, _, _ = KERNELS[name]
     outs = [torch.empty_like(ops[0]) for _ in range(n_out)]
     fn = getattr(MK.library(source), fn_name)
     ptrs = [t.data_ptr() for t in (*ops, *outs)]
+    if name in INT8_KERNELS:
+        ptrs.append(limb_mxu.device_tables(ctx, ops[0].device).data_ptr())
     rows = ops[0].numel() // ctx.n_limbs
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -150,16 +186,37 @@ def _raw_launcher(name, ctx, ops):
 
 
 def _bound_ms(name, rows) -> tuple[float, str]:
-    _, _, _, n_in, n_out, products = KERNELS[name]
-    n = 11 if name == "mont_mul_fr" else 16
-    bytes_moved = rows * (n_in + n_out) * n * 8
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = rows * products * 2 / INT32_OPS_PER_S * 1e3
+    """The least time the card could take: the larger of the bytes term
+    (int64 limbs, each input read once, each output written once; the 6 KB
+    of int8 tables are negligible) and the operations term (limb
+    multiply-adds on the CUDA cores plus int8 multiply-adds on the tensor
+    cores, two operations each)."""
+    _, _, _, n_in, n_out, imad, tc = KERNELS[name]
+    n = 11 if name.endswith("_fr") else 16
+    t_bytes = rows * (n_in + n_out) * n * 8 / HBM_BYTES_PER_S * 1e3
+    t_ops = (rows * imad * 2 / INT32_OPS_PER_S + rows * tc * 2 / INT8_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def count_imma() -> None:
+    """K4-K6 must issue their constant convolutions on the int8 tensor
+    cores: count IMMA instructions in each int8 library's SASS."""
+    from pathlib import Path
+
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    cuobjdump = str(Path(MK.nvcc_path()).with_name("cuobjdump"))
+    for source in dict.fromkeys(KERNELS[name][1] for name in INT8_KERNELS):
+        sass = subprocess.run([cuobjdump, "-sass", str(MK._lib_path(source))], check=True, capture_output=True, text=True).stdout
+        imma = sum("IMMA" in line for line in sass.splitlines())
+        if imma == 0:
+            raise AssertionError(f"{source}: no int8 tensor-core (IMMA) instruction in its SASS")
+        log(f"{source}: {imma} IMMA instructions in the SASS")
+
+
 def check_kernels(seed: int) -> dict:
-    """Each kernel == its plain version at main-path row counts; times."""
+    """Each kernel == its plain version at main-path row counts (and K4-K6
+    == K1-K3 on the same operands); times."""
     import torch
     from charon_tpu_torch.ops import mont_kernels as MK
 
@@ -176,20 +233,55 @@ def check_kernels(seed: int) -> dict:
                 worst = max(worst, err)
                 if err != 0:
                     raise AssertionError(f"{name} differs from its plain version at {rows} rows")
+            if name in INT8_KERNELS:
+                twin = _run(name.replace("_mxu", ""), ctx, ops, plain=False)
+                if not all(torch.equal(g, w) for g, w in zip(got, twin)):
+                    raise AssertionError(f"{name} differs from {name.replace('_mxu', '')} at {rows} rows")
         ctx, ops = _operands(name, TIMED_ROWS, seed, "cuda")
         ms = _time_ms(_raw_launcher(name, ctx, ops), 200)
         wrapper_ms = _time_ms(lambda: _run(name, ctx, ops, plain=False), 200)
         plain_ms = _time_ms(lambda: _run(name, ctx, ops, plain=True), 5)
         bound, bound_by = _bound_ms(name, TIMED_ROWS)
         results[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
-        log(f"kernel {name}: == plain at rows {CHECK_ROWS}; {TIMED_ROWS} rows: kernel {ms:.4f} ms, "
+        twin = f" and == {name.replace('_mxu', '')}" if name in INT8_KERNELS else ""
+        log(f"kernel {name}: == plain{twin} at rows {CHECK_ROWS}; {TIMED_ROWS} rows: kernel {ms:.4f} ms, "
             f"through the wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {bound_by}")
     MK.reset_launches()
     return results
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the 1k-validator 4-of-7 attestation duty
+# Phase 4: the startup tuner
+# ---------------------------------------------------------------------------
+
+
+def run_tuner() -> None:
+    """autotune.resolve on the card over the mxu_mont axis, with its
+    profile in a scratch directory under the build directory. Its choice
+    is printed; the duties below set their configurations themselves."""
+    import tempfile
+    from pathlib import Path
+
+    from charon_tpu_torch.core import autotune
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    MK.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=MK.BUILD_DIR) as tmp:
+        res = autotune.resolve(
+            "force", Path(tmp) / autotune.PROFILE_BASENAME,
+            candidates={"mxu_mont": autotune.CANDIDATES["mxu_mont"]},
+        )
+        prof = autotune.load_profile(Path(tmp) / autotune.PROFILE_BASENAME)
+    on, off = (res.timings["mxu_mont"][k] * 1e3 for k in ("on", "off"))
+    log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {autotune.TUNE_LANES} lanes "
+        f"(min of {autotune.TUNE_REPS}): mxu_mont on (K4) {on:.4f} ms, off (K1) {off:.4f} ms; "
+        f"choice mxu_mont={res.config.mxu_mont}; profile {prof['platform']} {prof['capability']} "
+        f"torch {prof['torch_version']} CUDA {prof['cuda_version']}")
+    MK.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: the 1k-validator 4-of-7 attestation duty
 # ---------------------------------------------------------------------------
 
 
@@ -237,20 +329,28 @@ def stage(name, fn, timings):
     return out
 
 
-def run_duty(n_validators: int, seed: int, workers: int):
-    """The duty through TorchImpl on the card; returns (stage timings,
-    launches per kernel, the impl, the threshold batch)."""
+def host_setup(n_validators: int, seed: int, workers: int) -> list:
+    """Keys, splits and partial signatures of n validators (host bigints,
+    in a process pool)."""
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        vals = pool.map(make_validator, [(seed, v) for v in range(n_validators)], chunksize=8)
+    log(f"host setup: {n_validators} validators, {4 * n_validators} partials, {time.perf_counter() - t0:.1f} s")
+    return vals
+
+
+def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
+    """The duty of validators `vals` through TorchImpl on the card, under
+    the configuration already applied; returns (stage timings, launches
+    per kernel, the impl, the threshold batch). Every kernel in `launched`
+    must launch during the duty, and none in `idle`."""
     from charon_tpu_torch.crypto import bls, g1g2, shamir
     from charon_tpu_torch.ops import mont_kernels as MK
     from charon_tpu_torch.tbls.python_impl import sig_to_point
     from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        vals = pool.map(make_validator, [(seed, v) for v in range(n_validators)], chunksize=8)
+    n_validators = len(vals)
     lanes = [(vals[v][2][i], vals[v][1], vals[v][3][i]) for v in range(n_validators) for i in vals[v][3]]
-    log(f"host setup: {n_validators} validators, {len(lanes)} partials, {time.perf_counter() - t0:.1f} s")
-
     impl = TorchImpl()
     grouped = []
     inner = impl.engine.verify_batch_grouped_rlc
@@ -267,10 +367,11 @@ def run_duty(n_validators: int, seed: int, workers: int):
     pk, msg, _ = forged[k]
     forged[k] = (pk, msg, g1g2.g2_to_bytes(bls.sign(vals[k // 4][4], duty_message(k // 4 + 1))))
 
+    log(f"duty {label}: {n_validators} validators, {len(lanes)} partials")
     timings: dict = {}
     MK.reset_launches()
     got = stage("verify_partials", lambda: impl.verify_batch(lanes), timings)
-    if not all(got) or grouped != [DUTY_MESSAGES]:
+    if not all(got) or grouped != [min(DUTY_MESSAGES, n_validators)]:
         raise AssertionError(f"partials: {got.count(False)} False, grouped calls {grouped}")
     got = stage("verify_forged_64", lambda: impl.verify_batch(forged), timings)
     if [i for i, ok in enumerate(got) if not ok] != [k]:
@@ -293,13 +394,16 @@ def run_duty(n_validators: int, seed: int, workers: int):
         if group_sigs[v] != want:
             raise AssertionError(f"validator {v}: group signature differs from host recombination")
     log(f"group signatures of {len(sample)} sampled validators equal host recombination")
-    log("launches over the duty:", json.dumps(launches))
-    if not all(launches[name] > 0 for name in KERNELS):
-        raise AssertionError(f"a main-path kernel never launched: {launches}")
+    log(f"launches over the duty {label}:", json.dumps(launches))
+    log(f"stage times {label} (s):", json.dumps(timings))
+    if not all(launches[name] > 0 for name in launched):
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    if any(launches[name] for name in idle):
+        raise AssertionError(f"a kernel outside the {label} path launched: {launches}")
     return timings, launches, impl, batch
 
 
-def profile_device(impl, batch) -> None:
+def profile_device(impl, batch, label: str) -> None:
     """Where the device time goes in the loop bodies that make up the
     main path: one step of the 255-bit G2 subgroup-check ladder over every
     partial (point arithmetic), and one step of the final exponentiation's
@@ -342,7 +446,7 @@ def profile_device(impl, batch) -> None:
             busy = sum(e.self_device_time_total for e in kernels) / 1e6
             launches = sum(e.count for e in kernels)
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-            log(f"profile {name}: {wall * 1e3:.2f} ms a step, {launches} kernel launches, kernels busy "
+            log(f"profile {label} {name}: {wall * 1e3:.2f} ms a step, {launches} kernel launches, kernels busy "
                 f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}")
             for e in top:
                 log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:70]}")
@@ -353,18 +457,21 @@ def profile_device(impl, batch) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--validators", type=int, default=1024)
+    ap.add_argument("--validators", type=int, default=1024, help="the int8 duty's validators")
+    ap.add_argument("--default-validators", type=int, default=64,
+                    help="the default duty's validators (at most --validators)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--workers", type=int, default=min(8, os.cpu_count() or 1))
     args = ap.parse_args(argv)
-    if args.validators < 16:
-        ap.error("--validators must be at least 16 (the forged batch takes 64 partials)")
+    if min(args.validators, args.default_validators) < 16:
+        ap.error("each duty needs at least 16 validators (the forged batch takes 64 partials)")
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    from charon_tpu_torch.core.autotune import KernelConfig
     from charon_tpu_torch.ops import mont_kernels as MK
 
     card = card_line()
@@ -380,14 +487,24 @@ def main(argv=None) -> int:
             if "ptxas info" in line or "spill" in line:
                 log("  " + line.strip())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    count_imma()
 
     results = check_kernels(args.seed)
-    timings, launches, impl, batch = run_duty(args.validators, args.seed, args.workers)
-    log("stage times (s):", json.dumps(timings))
-    profile_device(impl, batch)
+    run_tuner()
+    vals = host_setup(max(args.validators, args.default_validators), args.seed, args.workers)
+
+    KernelConfig(mxu_mont=True).apply()
+    _, int8_launches, impl, batch = run_duty(vals[: args.validators], args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
+    profile_device(impl, batch, "int8")
+    KernelConfig().apply()
+    _, default_launches, _, _ = run_duty(
+        vals[: min(args.default_validators, args.validators)], args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
+    )
+    profile_device(impl, batch, "default")
 
     kernels = []
     for name, (replaces, source, *_rest) in KERNELS.items():
+        launches = int8_launches if name in INT8_KERNELS else default_launches
         kernels.append({
             "name": name, "route": "cuda", "source": f"charon_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[name], **results[name], "library_ms": None,

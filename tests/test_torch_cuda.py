@@ -1,6 +1,8 @@
 """PyTorch port on the card: each hand-written CUDA kernel (K1 Fp, K1 Fr,
-K2, K3) against its plain PyTorch version on the same CUDA tensors, and
-TorchImpl's verify/aggregate on the card against the host oracle.
+K2, K3, and the int8 tensor-core K4 Fp, K4 Fr, K5, K6) against its plain
+PyTorch version on the same CUDA tensors, K4-K6 against K1-K3, and
+TorchImpl's verify/aggregate on the card against the host oracle under
+both kernel configurations.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where those are absent:
@@ -38,30 +40,58 @@ def _operand(ctx, n, seed, device):
     return torch.as_tensor(L.pack_mont_host(ctx, vals), device=device)
 
 
-@pytest.mark.parametrize("kernel", ["mont_mul_fp", "mont_mul_fr", "fp2_mul", "fp2_sqr"])
-def test_kernel_matches_plain_version(card, kernel):
-    ctx = L.FR if kernel == "mont_mul_fr" else L.FP
-    ops = [_operand(ctx, 4099, seed, card).roll(seed, 0) for seed in range(4)]
+def _call(kernel, ctx, ops, plain=False):
+    base = kernel.removesuffix("_fp").removesuffix("_fr")
+    fn = getattr(MK, base + "_plain" if plain else base)
+    if base.startswith("mont_mul"):
+        return [fn(ctx, ops[0], ops[1])]
+    if plain:
+        return fn(ctx, *ops[: 4 if base.startswith("fp2_mul") else 2])
+    if base.startswith("fp2_mul"):
+        return fn(ctx, (ops[0], ops[1]), (ops[2], ops[3]))
+    return fn(ctx, (ops[0], ops[1]))
+
+
+KERNELS = ["mont_mul_fp", "mont_mul_fr", "fp2_mul", "fp2_sqr",
+           "mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_mul_mxu", "fp2_sqr_mxu"]
+
+
+@pytest.mark.parametrize("rows", [4099, 131])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_matches_plain_version(card, kernel, rows):
+    """Row counts that are not multiples of a 128-row block or a 32-row
+    warp: the int8 kernels' dead rows must run the MMAs and store nothing."""
+    ctx = L.FR if kernel.endswith("_fr") else L.FP
+    ops = [_operand(ctx, rows, seed, card).roll(seed, 0) for seed in range(4)]
     before = MK.LAUNCHES[kernel]
-    if kernel.startswith("mont_mul"):
-        got, want = [MK.mont_mul(ctx, ops[0], ops[1])], [MK.mont_mul_plain(ctx, ops[0], ops[1])]
-    elif kernel == "fp2_mul":
-        got = MK.fp2_mul(ctx, (ops[0], ops[1]), (ops[2], ops[3]))
-        want = MK.fp2_mul_plain(ctx, *ops)
-    else:
-        got, want = MK.fp2_sqr(ctx, (ops[0], ops[1])), MK.fp2_sqr_plain(ctx, ops[0], ops[1])
+    got, want = _call(kernel, ctx, ops), _call(kernel, ctx, ops, plain=True)
     torch.cuda.synchronize()
     assert MK.LAUNCHES[kernel] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-def test_torch_impl_on_card_matches_host_oracle(card):
+@pytest.mark.parametrize("kernel", ["mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_mul_mxu", "fp2_sqr_mxu"])
+def test_int8_kernel_matches_its_k1_k3_twin(card, kernel):
+    ctx = L.FR if kernel.endswith("_fr") else L.FP
+    ops = [_operand(ctx, 65533, seed, card).roll(3 * seed, 0) for seed in range(4)]
+    got, twin = _call(kernel, ctx, ops), _call(kernel.replace("_mxu", ""), ctx, ops)
+    torch.cuda.synchronize()
+    for g, w in zip(got, twin):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mxu_mont", [False, True])
+def test_torch_impl_on_card_matches_host_oracle(card, mxu_mont):
     """16 partials of 4 validators (2 messages) through grouped RLC, one
     forged lane through the per-lane re-check, and recombination equal to
-    the host's Lagrange interpolation."""
+    the host's Lagrange interpolation, under KernelConfig(mxu_mont=...);
+    each configuration launches only its own kernels."""
+    from charon_tpu_torch.core.autotune import KernelConfig
     from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
+    KernelConfig(mxu_mont=mxu_mont).apply()
+    MK.reset_launches()
     host, impl = PythonHost(), TorchImpl()
     lanes, batch = [], []
     for v in range(4):
@@ -79,3 +109,6 @@ def test_torch_impl_on_card_matches_host_oracle(card):
         for p in batch
     ]
     assert got == want
+    KernelConfig().apply()
+    used = {k for k, n in MK.LAUNCHES.items() if n}
+    assert used == {k for k in KERNELS if ("_mxu" in k) == mxu_mont}

@@ -56,9 +56,9 @@ def _port_modules():
 
 
 def test_port_imports_without_jax_or_reference_package():
-    """Every module of the port, and chip_smoke, imports with jax and
-    charon_tpu made unimportable."""
-    mods = _port_modules() + ["charon_tpu_torch", "chip_smoke"]
+    """Every module of the port, chip_smoke and bench_duty_order import
+    with jax and charon_tpu made unimportable."""
+    mods = _port_modules() + ["charon_tpu_torch", "chip_smoke", "bench_duty_order"]
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -79,7 +79,7 @@ def test_port_imports_without_jax_or_reference_package():
 
 
 def test_port_sources_name_no_jax_or_reference_import():
-    files = sorted((ROOT / "charon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "charon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_duty_order.py"]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -140,19 +140,21 @@ def test_k1_wrapper_broadcasts_batch_dims():
     assert L.unpack_mont_host(ctx, got) == [x * 7 % ctx.modulus for x in _values(ctx, 6, 5)]
 
 
-@pytest.mark.parametrize("kernel", ["mont_mul", "fp2_mul", "fp2_sqr"])
+@pytest.mark.parametrize(
+    "kernel", ["mont_mul", "fp2_mul", "fp2_sqr", "mont_mul_mxu", "fp2_mul_mxu", "fp2_sqr_mxu"]
+)
 def test_wrappers_raise_off_cpu_without_fallback(kernel):
     """A tensor that is not on the CPU never takes the plain version: off
     a CUDA device the wrapper refuses instead of computing anything."""
     x = torch.zeros(4, 16, dtype=torch.int64, device="meta")
     before = dict(MK.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
-        if kernel == "mont_mul":
-            MK.mont_mul(L.FP, x, x)
-        elif kernel == "fp2_mul":
-            MK.fp2_mul(L.FP, (x, x), (x, x))
+        if kernel.startswith("mont_mul"):
+            getattr(MK, kernel)(L.FP, x, x)
+        elif kernel.startswith("fp2_mul"):
+            getattr(MK, kernel)(L.FP, (x, x), (x, x))
         else:
-            MK.fp2_sqr(L.FP, (x, x))
+            getattr(MK, kernel)(L.FP, (x, x))
     assert MK.LAUNCHES == before
 
 
