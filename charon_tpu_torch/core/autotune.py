@@ -14,11 +14,13 @@ The port of charon_tpu/core/autotune.py.
     the ops never read the environment.
 
   * `resolve()` is the startup tuner. It micro-benches each applicable
-    candidate axis on the card at the canonical lane count and persists
-    the winning profile (JSON, schema-versioned, keyed by platform, torch
-    and CUDA versions, the device's compute capability and a digest of the
-    port's kernel sources) in `charon_tpu_torch/_build/`. A later boot
-    with the same key loads it and benches nothing; a changed key re-tunes.
+    candidate axis on the card at the lane count the caller reads from its
+    duty, keeps an axis's default unless another value wins by more than
+    the spread between repeated runs, and persists the profile (JSON,
+    schema-versioned, keyed by platform, torch and CUDA versions, the
+    device's compute capability and a digest of the port's kernel sources)
+    in `charon_tpu_torch/_build/`. A later boot with the same key loads it
+    and benches nothing; a changed key re-tunes.
 
   * `aot_prewarm()` builds the kernels with nvcc and launches the chosen
     variants over the prewarm lane ladder, so the first duty pays neither
@@ -48,9 +50,11 @@ log = logging.getLogger("charon_tpu_torch")
 
 _PKG = Path(__file__).resolve().parent.parent
 
-# Canonical micro-bench / prewarm shapes: the blsops bucket ladder.
+# Canonical micro-bench / prewarm shapes: the blsops bucket ladder. A
+# caller that knows its duty passes the duty's lane count instead of
+# TUNE_LANES; at 8 lanes every bench is a few launches of host work.
 TUNE_LANES = 8
-TUNE_REPS = 3
+TUNE_REPS = 5
 PREWARM_LANES = (4, 16, 64, 256)
 
 PROFILE_VERSION = 1
@@ -188,7 +192,7 @@ class TuneResult:
     applied: bool
     bench_runs: int  # 0 on a pure profile load
     sources: dict  # axis -> profile|tuned|env|default|inapplicable
-    timings: dict  # axis -> {"on"/"off": seconds}
+    timings: dict  # axis -> {"on"/"off": best seconds, "spread": seconds}
     overrides: dict  # env-derived field overrides in force
     profile_path: str | None
 
@@ -243,17 +247,27 @@ def _recombine_builder(lanes: int, device: torch.device, t: int = 3) -> Callable
     return run
 
 
-def _mont_mul_builder(lanes: int, device: torch.device) -> Callable[[], None]:
-    """Stacked base-field Montgomery product: the kernel the mxu_mont axis
-    reroutes (K1 vs K4)."""
+def _ladder_step_builder(lanes: int, device: torch.device) -> Callable[[], None]:
+    """One step of the duty's subgroup-check ladders over `lanes` G2 and
+    `lanes` G1 points: the loop bodies whose stacked Montgomery products
+    the mxu_mont axis reroutes (K1-K3 vs K4-K6), so the kernels see the
+    row counts a duty of `lanes` partials sends them."""
+    from charon_tpu_torch.crypto.g1g2 import G1_GEN, G2_GEN
     from charon_tpu_torch.ops import blsops, limb
+    from charon_tpu_torch.ops import curve as C
 
-    ctx = limb.FP
     n = blsops.bucket_lanes(lanes)
-    a = limb.to_device(limb.ctx_pack(ctx, [(i * 2654435761 + 1) % ctx.modulus for i in range(n)]), device)
+    steps = []
+    for ops, pack, gen in ((C.g2_ops, C.g2_pack, G2_GEN), (C.g1_ops, C.g1_pack, G1_GEN)):
+        f = ops(limb.FP)
+        steps.append((f, C.affine_to_point(f, pack(limb.FP, [gen] * n, device))))
+    bit = torch.ones(n, dtype=torch.bool, device=device)
 
     def run() -> None:
-        limb.mont_mul(ctx, a, a)
+        with torch.inference_mode():
+            for f, p in steps:
+                acc = C.point_double(f, p)
+                C.point_select(f, bit, C.point_add(f, acc, p), acc)
         _sync(device)
 
     return run
@@ -294,7 +308,7 @@ register_candidate(Candidate(
     field="mxu_mont",
     doc="int8 tensor-core Montgomery product (K4) vs K1",
     applicable=_always,
-    builder=_mont_mul_builder,
+    builder=_ladder_step_builder,
 ))
 # Axes with no route in the port yet: the unfused Fp2 path was not ported,
 # and the DKG ceremony kernels are ROADMAP item 10.
@@ -343,11 +357,15 @@ def micro_bench(
     device=None,
 ):
     """Greedily tune each applicable candidate axis: apply the value, build
-    the axis's bench kernel, time `reps` dispatches (min wins), carry the
-    winner into the next axis's baseline.
+    the axis's bench kernel at `lanes`, time `reps` dispatches, carry the
+    winner into the next axis's baseline. Another value replaces the
+    axis's baseline value only when its best time beats the baseline's by
+    more than the spread (slowest minus fastest run) of any value: a
+    smaller win is noise, and the tuner must not persist noise.
 
     Returns (choices, timings, bench_runs) where choices maps field ->
-    (winning value, source) and source is "tuned" or "inapplicable".
+    (winning value, source), source is "tuned" or "inapplicable", and
+    timings maps field -> {value label: best seconds, "spread": seconds}.
     """
     obs = observer or (lambda kind, **fields: None)
     dev = _resolve_device(device)
@@ -360,19 +378,23 @@ def micro_bench(
             choices[field] = (getattr(cfg, field), "inapplicable")
             continue
         per_value: dict = {}
+        spread = 0.0
         for value in cand.values:
             trial = dataclasses.replace(cfg, **{field: value})
             trial.apply()
             run = cand.builder(lanes, dev)
             run()  # build the kernels and warm up
-            best = min(_timed(run) for _ in range(max(1, reps)))
-            per_value[_label(value)] = best
+            runs = [_timed(run) for _ in range(max(1, reps))]
+            per_value[_label(value)] = min(runs)
+            spread = max(spread, max(runs) - min(runs))
             bench_runs += 1
-            obs("bench", axis=field, choice=_label(value), seconds=best)
-        win = min(cand.values, key=lambda v: per_value[_label(v)])
+            obs("bench", axis=field, choice=_label(value), seconds=min(runs))
+        base_value = getattr(cfg, field)
+        fastest = min(cand.values, key=lambda v: per_value[_label(v)])
+        win = fastest if per_value[_label(base_value)] - per_value[_label(fastest)] > spread else base_value
         cfg = dataclasses.replace(cfg, **{field: win})
         choices[field] = (win, "tuned")
-        timings[field] = per_value
+        timings[field] = {**per_value, "spread": spread}
     return choices, timings, bench_runs
 
 
@@ -607,6 +629,11 @@ def resolve(
     micro-bench and persist one; "force" = always re-tune. Without a card
     (and device not "cpu"), "auto" skips loudly and "on"/"force" raise
     PlaneConfigError.
+
+    `lanes` is the lane count the benches run at: pass the duty's own
+    (the partial signatures one duty verifies), so the mxu_mont bench
+    sends its kernels the duty's row counts. An axis keeps its default
+    unless another value wins by more than the measured spread.
 
     `observer(kind, **fields)` receives "profile" (event=hit|miss|stale|
     corrupt|rebuilt|off|skipped), "decision" (axis/choice/source), "bench"

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (charon_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--validators 1024] [--default-validators 64]
-                          [--seed 1] [--workers 8]
+    python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -16,8 +15,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      edge values — exactly equal — and K4-K6 against K1-K3 on the same
      operands; each kernel's time (alone, through its wrapper, plain)
      beside its bound;
-  4. the startup tuner on the card: autotune.resolve("force") over the
-     mxu_mont axis (K1 vs K4), its timings and its choice;
+  4. the host setup of the duty (keys, 4-of-7 splits, partials), then the
+     startup tuner on the card: autotune.resolve("force") over the
+     mxu_mont axis (K1-K3 vs K4-K6) at the duty's lane count, its timings,
+     spread and choice;
   5. the int8 configuration's duty at full width: KernelConfig(mxu_mont=
      True).apply(), then a 1k-validator 4-of-7 attestation duty through
      TorchImpl (verify 4096 partials by grouped RLC, a forged lane found by
@@ -25,8 +26,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      signatures checked against host recombination, verification of the
      group signatures), with each stage's wall time and each kernel's
      launches — K4 Fp, K4 Fr, K5 and K6 must launch, K1-K3 never;
-  6. the default configuration's duty (KernelConfig()) at a reduced depth
-     from the same host setup — K1-K3 must launch, K4-K6 never;
+  6. the default configuration's duty (KernelConfig()) on the same
+     validators — K1-K3 must launch, K4-K6 never;
   7. a torch.profiler trace of two main-path loop bodies under each
      configuration (kernel time, idle share, top kernels);
   8. the kernels JSON line, then the result line.
@@ -255,10 +256,11 @@ def check_kernels(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def run_tuner() -> None:
-    """autotune.resolve on the card over the mxu_mont axis, with its
-    profile in a scratch directory under the build directory. Its choice
-    is printed; the duties below set their configurations themselves."""
+def run_tuner(lanes: int) -> None:
+    """autotune.resolve on the card over the mxu_mont axis at the duty's
+    lane count, with its profile in a scratch directory under the build
+    directory. Its choice is printed; the duties below set their
+    configurations themselves."""
     import tempfile
     from pathlib import Path
 
@@ -269,14 +271,14 @@ def run_tuner() -> None:
     with tempfile.TemporaryDirectory(dir=MK.BUILD_DIR) as tmp:
         res = autotune.resolve(
             "force", Path(tmp) / autotune.PROFILE_BASENAME,
-            candidates={"mxu_mont": autotune.CANDIDATES["mxu_mont"]},
+            lanes=lanes, candidates={"mxu_mont": autotune.CANDIDATES["mxu_mont"]},
         )
         prof = autotune.load_profile(Path(tmp) / autotune.PROFILE_BASENAME)
-    on, off = (res.timings["mxu_mont"][k] * 1e3 for k in ("on", "off"))
-    log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {autotune.TUNE_LANES} lanes "
-        f"(min of {autotune.TUNE_REPS}): mxu_mont on (K4) {on:.4f} ms, off (K1) {off:.4f} ms; "
-        f"choice mxu_mont={res.config.mxu_mont}; profile {prof['platform']} {prof['capability']} "
-        f"torch {prof['torch_version']} CUDA {prof['cuda_version']}")
+    on, off, spread = (res.timings["mxu_mont"][k] * 1e3 for k in ("on", "off", "spread"))
+    log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {lanes} lanes "
+        f"(min of {autotune.TUNE_REPS}): mxu_mont on (K4-K6) {on:.3f} ms, off (K1-K3) {off:.3f} ms, "
+        f"spread {spread:.3f} ms; choice mxu_mont={res.config.mxu_mont}; "
+        f"profile {prof['platform']} {prof['capability']} torch {prof['torch_version']} CUDA {prof['cuda_version']}")
     MK.reset_launches()
 
 
@@ -457,13 +459,11 @@ def profile_device(impl, batch, label: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--validators", type=int, default=1024, help="the int8 duty's validators")
-    ap.add_argument("--default-validators", type=int, default=64,
-                    help="the default duty's validators (at most --validators)")
+    ap.add_argument("--validators", type=int, default=1024, help="each duty's validators")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--workers", type=int, default=min(8, os.cpu_count() or 1))
     args = ap.parse_args(argv)
-    if min(args.validators, args.default_validators) < 16:
+    if args.validators < 16:
         ap.error("each duty needs at least 16 validators (the forged batch takes 64 partials)")
 
     import torch
@@ -490,16 +490,14 @@ def main(argv=None) -> int:
     count_imma()
 
     results = check_kernels(args.seed)
-    run_tuner()
-    vals = host_setup(max(args.validators, args.default_validators), args.seed, args.workers)
+    vals = host_setup(args.validators, args.seed, args.workers)
+    run_tuner(sum(len(v[3]) for v in vals))
 
     KernelConfig(mxu_mont=True).apply()
-    _, int8_launches, impl, batch = run_duty(vals[: args.validators], args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
+    _, int8_launches, impl, batch = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
     profile_device(impl, batch, "int8")
     KernelConfig().apply()
-    _, default_launches, _, _ = run_duty(
-        vals[: min(args.default_validators, args.validators)], args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
-    )
+    _, default_launches, _, _ = run_duty(vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS)
     profile_device(impl, batch, "default")
 
     kernels = []

@@ -428,6 +428,45 @@ def test_micro_bench_picks_the_faster_value_greedily():
     assert [f["axis"] for k, f in log if k == "bench"] == ["msm", "msm", "mxu_mont", "mxu_mont"]
 
 
+def test_micro_bench_keeps_the_default_when_the_win_is_within_the_spread():
+    """A value that is faster by less than the spread between runs does
+    not replace the default: noise is not persisted."""
+    import itertools
+    import time
+
+    def builder(lanes, device):
+        if L._MXU_MODE:
+            return lambda: time.sleep(0.008)
+        slow = itertools.cycle([0.010, 0.040])
+        return lambda: time.sleep(next(slow))
+
+    cands = {"mxu_mont": autotune.Candidate("mxu_mont", "fake", lambda: True, builder)}
+    choices, timings, _ = autotune.micro_bench(cands, lanes=8, reps=4, device="cpu")
+    assert timings["mxu_mont"]["on"] < timings["mxu_mont"]["off"]
+    assert timings["mxu_mont"]["spread"] > timings["mxu_mont"]["off"] - timings["mxu_mont"]["on"]
+    assert choices["mxu_mont"] == (False, "tuned")
+    assert not L._mxu_active(L.FP)
+
+
+@pytest.mark.parametrize("mxu_mont", [False, True])
+def test_mxu_mont_bench_runs_the_kernels_the_axis_reroutes(monkeypatch, mxu_mont):
+    """The mxu_mont bench is the duty's ladder step over G2 and G1 points:
+    it reaches the Fp product and the Fp2 multiply and square of the
+    configuration in force (their plain versions on CPU tensors)."""
+    names = ["mont_mul_plain", "fp2_mul_plain", "fp2_sqr_plain"]
+    names = [n.replace("_plain", "_mxu_plain") for n in names] if mxu_mont else names
+    calls = {}
+    for name in names:
+        def spy(*args, _fn=getattr(MK, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args)
+
+        monkeypatch.setattr(MK, name, spy)
+    KernelConfig(mxu_mont=mxu_mont).apply()
+    autotune.CANDIDATES["mxu_mont"].builder(3, torch.device("cpu"))()
+    assert set(calls) == set(names)
+
+
 def test_aot_prewarm_walks_the_lane_ladder():
     ran = []
     cands = {"mxu_mont": _fake_candidate("mxu_mont", {True: 0.0, False: 0.0}, ran),

@@ -20,9 +20,17 @@ import torch
 from charon_tpu_torch.crypto import g1g2, shamir
 from charon_tpu_torch.ops import limb as L
 from charon_tpu_torch.ops import mont_kernels as MK
+from charon_tpu_torch.ops import msm as MSM
 from charon_tpu_torch.tbls.python_impl import PythonHost, sig_to_point
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _default_route():
+    yield
+    L.set_mxu(None)
+    MSM.set_msm(None)
 
 
 @pytest.fixture
@@ -109,6 +117,5 @@ def test_torch_impl_on_card_matches_host_oracle(card, mxu_mont):
         for p in batch
     ]
     assert got == want
-    KernelConfig().apply()
     used = {k for k, n in MK.LAUNCHES.items() if n}
     assert used == {k for k in KERNELS if ("_mxu" in k) == mxu_mont}

@@ -56,9 +56,9 @@ def _port_modules():
 
 
 def test_port_imports_without_jax_or_reference_package():
-    """Every module of the port, chip_smoke and bench_duty_order import
-    with jax and charon_tpu made unimportable."""
-    mods = _port_modules() + ["charon_tpu_torch", "chip_smoke", "bench_duty_order"]
+    """Every module of the port, and chip_smoke, imports with jax and
+    charon_tpu made unimportable."""
+    mods = _port_modules() + ["charon_tpu_torch", "chip_smoke"]
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -79,7 +79,7 @@ def test_port_imports_without_jax_or_reference_package():
 
 
 def test_port_sources_name_no_jax_or_reference_import():
-    files = sorted((ROOT / "charon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_duty_order.py"]
+    files = sorted((ROOT / "charon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
