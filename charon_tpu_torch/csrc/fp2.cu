@@ -1,4 +1,4 @@
-// K2 and K3: fused Fp2 multiply and square, one thread per Fp2 element.
+// K2 and K3: fused Fp2 multiply and square.
 //
 // K2 replaces charon_tpu/ops/pallas_mont.py fp2_mul_pallas ->
 // _fp2_mul_kernel_body -> _fp2_mul_math (Karatsuba: v0 = a0 b0,
@@ -8,8 +8,6 @@
 //
 // What the TPU kernels buy, and these keep: the prep sums, the three (two)
 // Montgomery products and the recombination never reach device memory.
-// Each thread loads its operands into registers, runs the whole formula
-// there (mont_field.cuh) and writes the two reduced output coordinates.
 //
 // Bound on the H100 (per Fp2 element, 16-limb Fp in int64 limbs): K2 moves
 // 6 x 128 = 768 bytes (0.229 ns at 3.35 TB/s) against 3 x 528 = 1584 limb
@@ -17,35 +15,32 @@
 // two ops); K3 moves 512 bytes (0.153 ns) against 1056 multiply-adds
 // (0.063 ns). Both are bound by bytes, which the fusion already holds to
 // one read of each input and one write of each output.
+//
+// K2 is tiled (fp2_tile.cuh): 32 elements a tile, their operands fetched
+// into shared memory with coalesced 16-byte asynchronous copies (the next
+// tile's while this one computes) and the results stored 16 bytes a
+// thread, and one CIOS product (mont_field.cuh, K1's) a thread, 96 threads
+// a block, so an element's three products run on three warps at once and
+// the duty's launches of 6-25 thousand rows spread over all SMs. Persistent
+// blocks, four an SM. K3 keeps one element a thread, its operands in
+// registers.
 
+#include "fp2_tile.cuh"
 #include "mont_field.cuh"
 
 namespace charon {
 
-template <int N>
-__global__ void __launch_bounds__(kThreads)
-    fp2_mul_kernel(const int64_t* __restrict__ a0, const int64_t* __restrict__ a1,
-                   const int64_t* __restrict__ b0, const int64_t* __restrict__ b1,
-                   int64_t* __restrict__ c0, int64_t* __restrict__ c1, int64_t rows,
-                   Modulus m) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  uint32_t x0[N], x1[N], y0[N], y1[N];
-  load_limbs<N>(a0, row, x0);
-  load_limbs<N>(a1, row, x1);
-  load_limbs<N>(b0, row, y0);
-  load_limbs<N>(b1, row, y1);
-  uint32_t ta[N], tb[N], v0[N], v1[N], s[N], r[N];
-  add_mod<N>(x0, x1, ta, m);
-  add_mod<N>(y0, y1, tb, m);
-  mont_mul<N>(x0, y0, v0, m);
-  mont_mul<N>(x1, y1, v1, m);
-  mont_mul<N>(ta, tb, s, m);
-  sub_mod<N>(v0, v1, r, m);
-  store_limbs<N>(c0, row, r);
-  add_mod<N>(v0, v1, ta, m);
-  sub_mod<N>(s, ta, r, m);
-  store_limbs<N>(c1, row, r);
+// Blocks resident on an SM (mont_kernels._RESIDENT["fp2_mul"] mirrors it):
+// it caps the registers at 65,536 / (4 x 96) = 170, where the CIOS product
+// and the staged operands fit without spills.
+constexpr int kFp2MulBlocks = 4;
+
+__global__ void __launch_bounds__(kTileThreads, kFp2MulBlocks)
+    fp2_mul_kernel(Fp2Ptrs p, int64_t rows, Modulus m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Fp2Tile& t = *reinterpret_cast<Fp2Tile*>(smem);
+  fp2_mul_tiles(p, rows, m, t, [&](const uint32_t (&x)[kFp2Limbs], const uint32_t (&y)[kFp2Limbs],
+                                   uint32_t (&r)[kFp2Limbs]) { mont_mul<kFp2Limbs>(x, y, r, m); });
 }
 
 template <int N>
@@ -70,16 +65,22 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace charon
 
+// The launch geometry comes from ops/mont_kernels.fp2_geometry: `elems`
+// and `threads` must be the tile's, `smem` sizeof(Fp2Tile), and `grid`
+// between 1 and the number of tiles.
 extern "C" int charon_fp2_mul(const int64_t* a0, const int64_t* a1, const int64_t* b0,
                               const int64_t* b1, int64_t* c0, int64_t* c1, int64_t rows,
-                              int n_limbs, const int64_t* mod_limbs, int64_t pinv,
-                              void* stream) {
+                              int elems, int threads, int grid, int smem, int n_limbs,
+                              const int64_t* mod_limbs, int64_t pinv, void* stream) {
   using namespace charon;
   if (rows <= 0) return 0;
-  if (n_limbs != 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = (rows + kTileElems - 1) / kTileElems;
+  if (n_limbs != kFp2Limbs || elems != kTileElems || threads != kTileThreads ||
+      smem != static_cast<int>(sizeof(Fp2Tile)) || grid < 1 || grid > tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Modulus m = make_modulus(mod_limbs, n_limbs, pinv);
-  fp2_mul_kernel<16><<<grid_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a0, a1, b0, b1, c0, c1, rows, m);
+  const Fp2Ptrs p{{a0, a1, b0, b1}, {c0, c1}};
+  fp2_mul_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p, rows, m);
   return static_cast<int>(cudaGetLastError());
 }
 

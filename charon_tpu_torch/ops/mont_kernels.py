@@ -15,6 +15,11 @@ K4-K6 run the two constant convolutions of every Montgomery product on the
 int8 tensor cores (ops/limb_mxu.py); limb.set_mxu, owned by
 core/autotune.KernelConfig, routes the products to them.
 
+K2 and K5 are tiled (csrc/fp2_tile.cuh): 32 Fp2 elements a tile, one
+Montgomery product a thread, persistent blocks. fp2_geometry computes
+their launch geometry from the row count and the card's SM count, and the
+wrapper passes it to the C entry point, which checks it.
+
 Beside each wrapper is its plain PyTorch version: the int64 limb algorithm
 of limb.mont_mul (K4: limb_mxu.mont_mul_mxu) and the Fp2 formulas. A
 wrapper takes the plain version only for a tensor that lies on the CPU; for
@@ -38,6 +43,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -55,26 +61,74 @@ NVCC_FLAGS = (
 )
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # After the operand pointers: rows, n_limbs, modulus limbs (host), pinv,
-# stream. K4-K6 take the int8 piece tables (device) between the two.
+# stream. K4-K6 take the int8 piece tables (device) between the two; the
+# tiled K2 and K5 take their geometry (elements a tile, threads, grid,
+# dynamic shared bytes) after rows.
 _TAIL = [_I64, _INT, _PTR, _I64, _PTR]
+_TILED_TAIL = [_I64] + [_INT] * 4 + _TAIL[1:]
 # source file -> {exported kernel function: its C signature}
 _SOURCES = {
     "mont_mul.cu": {"charon_mont_mul": [_PTR] * 3 + _TAIL},
-    "fp2.cu": {"charon_fp2_mul": [_PTR] * 6 + _TAIL, "charon_fp2_sqr": [_PTR] * 4 + _TAIL},
+    "fp2.cu": {"charon_fp2_mul": [_PTR] * 6 + _TILED_TAIL, "charon_fp2_sqr": [_PTR] * 4 + _TAIL},
     "mont_mxu.cu": {"charon_mont_mul_mxu": [_PTR] * 4 + _TAIL},
-    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TAIL},
+    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TILED_TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TAIL},
 }
 
-# Launches per kernel since the last reset_launches().
+# The tiled kernels' constants, mirrored from csrc: Fp2 elements a tile
+# (fp2_tile.cuh kTileElems), blocks resident on an SM (the second
+# argument of each kernel's __launch_bounds__), and dynamic shared bytes a
+# block: sizeof Fp2Tile (four staged operand tiles of 144-byte rows, three
+# product and two output limb planes of 32-bit words) and sizeof
+# Fp2MxuShared (adds the 16-byte piece rows, one 32-column pass of column
+# sums and the tables).
+TILE_ELEMS = 32
+_TILE_BYTES = 4 * TILE_ELEMS * 144 + 5 * 16 * (TILE_ELEMS + 1) * 4
+_RESIDENT = {"fp2_mul": 4, "fp2_mul_mxu": 4}
+_SMEM = {
+    "fp2_mul": _TILE_BYTES,
+    "fp2_mul_mxu": _TILE_BYTES + 2 * 2 * 3 * TILE_ELEMS * 16 + 32 * (3 * TILE_ELEMS + 4) * 4 + 2 * 2 * (32 + 64) * 16,
+}
+
+
+@dataclass(frozen=True)
+class Fp2Geometry:
+    """A tiled launch: block b takes tiles b, b + grid, b + 2 grid, ...;
+    tile t is rows [t elems, min(rows, (t + 1) elems))."""
+
+    rows: int
+    elems: int  # Fp2 elements a tile
+    threads: int  # a block's threads: one Montgomery product each
+    grid: int  # blocks
+    smem: int  # dynamic shared bytes a block
+
+
+def fp2_geometry(kernel: str, rows: int, sm_count: int) -> Fp2Geometry:
+    """The launch of tiled kernel `kernel` ("fp2_mul" or "fp2_mul_mxu") over
+    rows > 0 on a card of sm_count SMs: one block a tile up to the blocks
+    the card holds at once, then that many persistent blocks, so a large
+    launch runs in whole waves and loads its tables once a block."""
+    tiles = -(-rows // TILE_ELEMS)
+    grid = min(tiles, sm_count * _RESIDENT[kernel])
+    return Fp2Geometry(rows, TILE_ELEMS, 3 * TILE_ELEMS, grid, _SMEM[kernel])
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+# Launches per kernel since the last reset_launches(), and per kernel the
+# launches at each row count ({rows: launches}).
 LAUNCHES = {
     "mont_mul_fp": 0, "mont_mul_fr": 0, "fp2_mul": 0, "fp2_sqr": 0,
     "mont_mul_mxu_fp": 0, "mont_mul_mxu_fr": 0, "fp2_mul_mxu": 0, "fp2_sqr_mxu": 0,
 }
+ROWS: dict[str, dict[int, int]] = {name: {} for name in LAUNCHES}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        ROWS[name].clear()
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +218,8 @@ def library(source: str) -> ctypes.CDLL:
 def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: bool = False) -> None:
     """Check the CUDA operands (inputs then outputs, one shape), launch on
     the current stream, and raise on a refused launch. `tables` passes the
-    int8 piece tables of ctx on the operands' device (K4-K6)."""
+    int8 piece tables of ctx on the operands' device (K4-K6); a tiled
+    kernel (K2, K5) gets its fp2_geometry."""
     ref = tensors[0]
     for t in tensors:
         if t.device != ref.device or t.device.type != "cuda":
@@ -180,16 +235,21 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
         return
     lib = library(source)
     extra = (limb_mxu.device_tables(ctx, ref.device).data_ptr(),) if tables else ()
+    geom = ()
+    if kernel in _RESIDENT:
+        g = fp2_geometry(kernel, rows, sm_count(ref.device))
+        geom = (g.elems, g.threads, g.grid, g.smem)
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         rc = getattr(lib, fn)(
-            *(t.data_ptr() for t in tensors), *extra, rows, ctx.n_limbs,
+            *(t.data_ptr() for t in tensors), *extra, rows, *geom, ctx.n_limbs,
             ctx.limbs.ctypes.data, ctx.pinv, stream,
         )
     if rc != 0:
         msg = getattr(lib, f"charon_{Path(source).stem}_error_string")(rc)
         raise RuntimeError(f"{kernel} launch failed: {msg.decode()} ({rc})")
     LAUNCHES[kernel] += 1
+    ROWS[kernel][rows] = ROWS[kernel].get(rows, 0) + 1
 
 
 def _operands(tensors):
@@ -357,6 +417,8 @@ def _fp2_kernel(source: str, fn: str, kernel: str, plain, ctx: ModCtx, operands,
         return plain(ctx, *operands)
     _check_fp2_ctx(ctx, kernel)
     ins = [x.contiguous() for x in operands]
+    if kernel in _RESIDENT:  # tiles move in 16-byte words: copy a view that starts between them
+        ins = [x if x.data_ptr() % 16 == 0 else x.clone() for x in ins]
     c0, c1 = torch.empty_like(ins[0]), torch.empty_like(ins[0])
     _launch(source, fn, ctx, kernel, (*ins, c0, c1), tables=tables)
     return c0, c1

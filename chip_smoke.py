@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      K4 Fr, K5, K6) against its plain PyTorch version on the same CUDA
      tensors at 8192, 65533 and 65536 rows, on seeded reduced inputs plus
      edge values — exactly equal — and K4-K6 against K1-K3 on the same
-     operands; each kernel's time (alone, through its wrapper, plain)
+     operands; the tiled K2 and K5 also at the edges of their tiles and
+     waves (1, 2, 3, a tile less one, a tile, a tile and one, an odd count
+     above one wave of resident blocks); each kernel's time (alone: 200
+     queued launches of its C entry point; through its wrapper; plain)
      beside its bound;
   4. the host setup of the duty (keys, 4-of-7 splits, partials), then the
      startup tuner on the card: autotune.resolve("force") over the
@@ -30,7 +33,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      validators — K1-K3 must launch, K4-K6 never;
   7. a torch.profiler trace of two main-path loop bodies under each
      configuration (kernel time, idle share, top kernels);
-  8. the kernels JSON line, then the result line.
+  8. every kernel timed at the four row counts its duty launched it at
+     most often (from mont_kernels.ROWS, the rows-per-launch map filled
+     during phases 5-6), each beside its bound;
+  9. the kernels JSON line, then the result line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -85,8 +91,10 @@ KERNELS = {
 }
 INT8_KERNELS = tuple(k for k in KERNELS if "_mxu" in k)
 DEFAULT_KERNELS = tuple(k for k in KERNELS if "_mxu" not in k)
+TILED_KERNELS = ("fp2_mul", "fp2_mul_mxu")
 CHECK_ROWS = (8192, 65533, 65536)
 TIMED_ROWS = 65536
+DUTY_SHAPES = 4  # row counts a kernel is timed at beyond TIMED_ROWS
 DUTY_MESSAGES = 8
 
 
@@ -127,7 +135,7 @@ def _operands(name, rows, seed, device):
         raw[:, -1] = torch.randint(0, m >> (24 * (ctx.n_limbs - 1)), (rows,), generator=gen)
         rolled = edge[k % len(edge):] + edge[: k % len(edge)]
         head = limb.pack_mont_host(ctx, [v * pow(ctx.r_mont, -1, m) % m for v in rolled * 8])
-        raw[: len(head)] = torch.as_tensor(head)
+        raw[: len(head)] = torch.as_tensor(head[:rows])
         ops.append(raw.to(device))
     return ctx, ops
 
@@ -149,12 +157,18 @@ def _run(name, ctx, ops, plain: bool):
     return fn(ctx, (ops[0], ops[1]))
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms(fn, iters: int, queued: bool = False) -> float:
+    """CUDA events around `iters` calls of fn, in ms a call. With `queued`
+    the stream first sleeps long enough for the host to enqueue every call,
+    so the events hold the launches back to back: the card's time, not the
+    host's rate of launching (which sets the pace below ~10 us a kernel)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(iters * 100_000)  # ~50 us of host time a call at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -165,7 +179,8 @@ def _time_ms(fn, iters: int) -> float:
 
 def _raw_launcher(name, ctx, ops):
     """A closure that launches the kernel alone — the C entry point with
-    fixed pointers — so the timed loop holds no wrapper overhead."""
+    fixed pointers and, for K2 and K5, the wrapper's geometry — so the
+    timed loop holds no wrapper overhead."""
     import torch
     from charon_tpu_torch.ops import limb_mxu
     from charon_tpu_torch.ops import mont_kernels as MK
@@ -177,10 +192,14 @@ def _raw_launcher(name, ctx, ops):
     if name in INT8_KERNELS:
         ptrs.append(limb_mxu.device_tables(ctx, ops[0].device).data_ptr())
     rows = ops[0].numel() // ctx.n_limbs
+    geom = ()
+    if name in TILED_KERNELS:
+        g = MK.fp2_geometry(name, rows, MK.sm_count(ops[0].device))
+        geom = (g.elems, g.threads, g.grid, g.smem)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        if fn(*ptrs, rows, ctx.n_limbs, ctx.limbs.ctypes.data, ctx.pinv, stream) != 0:
+        if fn(*ptrs, rows, *geom, ctx.n_limbs, ctx.limbs.ctypes.data, ctx.pinv, stream) != 0:
             raise RuntimeError(f"{name} launch failed")
 
     return launch
@@ -215,16 +234,27 @@ def count_imma() -> None:
         log(f"{source}: {imma} IMMA instructions in the SASS")
 
 
+def edge_rows(name: str) -> tuple:
+    """Row counts at the edges of a tiled kernel's tiles and waves."""
+    import torch
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    e = MK.TILE_ELEMS
+    wave = MK.sm_count(torch.device("cuda")) * MK._RESIDENT[name] * e
+    return (1, 2, 3, e - 1, e, e + 1, wave + 2 * e + 1)
+
+
 def check_kernels(seed: int) -> dict:
-    """Each kernel == its plain version at main-path row counts (and K4-K6
-    == K1-K3 on the same operands); times."""
+    """Each kernel == its plain version at main-path row counts, and K2/K5
+    also at their tile edges (K4-K6 == K1-K3 on the same operands); times."""
     import torch
     from charon_tpu_torch.ops import mont_kernels as MK
 
     results = {}
     for name in KERNELS:
         worst = 0
-        for rows in CHECK_ROWS:
+        rows_checked = CHECK_ROWS + (edge_rows(name) if name in TILED_KERNELS else ())
+        for rows in rows_checked:
             ctx, ops = _operands(name, rows, seed + rows, "cuda")
             got = _run(name, ctx, ops, plain=False)
             want = _run(name, ctx, ops, plain=True)
@@ -239,16 +269,44 @@ def check_kernels(seed: int) -> dict:
                 if not all(torch.equal(g, w) for g, w in zip(got, twin)):
                     raise AssertionError(f"{name} differs from {name.replace('_mxu', '')} at {rows} rows")
         ctx, ops = _operands(name, TIMED_ROWS, seed, "cuda")
-        ms = _time_ms(_raw_launcher(name, ctx, ops), 200)
+        ms = _time_ms(_raw_launcher(name, ctx, ops), 200, queued=True)
         wrapper_ms = _time_ms(lambda: _run(name, ctx, ops, plain=False), 200)
         plain_ms = _time_ms(lambda: _run(name, ctx, ops, plain=True), 5)
         bound, bound_by = _bound_ms(name, TIMED_ROWS)
         results[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
         twin = f" and == {name.replace('_mxu', '')}" if name in INT8_KERNELS else ""
-        log(f"kernel {name}: == plain{twin} at rows {CHECK_ROWS}; {TIMED_ROWS} rows: kernel {ms:.4f} ms, "
+        log(f"kernel {name}: == plain{twin} at rows {rows_checked}; {TIMED_ROWS} rows: kernel {ms:.4f} ms, "
             f"through the wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {bound_by}")
     MK.reset_launches()
     return results
+
+
+def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
+    """Phase 8: each kernel's time (C entry point alone, CUDA events over
+    200 queued launches) at the DUTY_SHAPES row counts its duty launched it at
+    most often, beside the bound. The operands stay in L2 across the
+    launches, as on the duty, where each kernel's operands were written by
+    the op just before it. Adds to `results` each shape's numbers and the
+    launch-weighted sums over those shapes."""
+    for name in KERNELS:
+        top = sorted(rows[name].items(), key=lambda kv: (-kv[1], -kv[0]))[:DUTY_SHAPES]
+        shapes = []
+        for n_rows, launches in top:
+            ctx, ops = _operands(name, n_rows, seed + n_rows, "cuda")
+            ms = _time_ms(_raw_launcher(name, ctx, ops), 200, queued=True)
+            bound, _ = _bound_ms(name, n_rows)
+            shapes.append({"rows": n_rows, "launches": launches, "ms": ms, "bound_ms": bound})
+        total = sum(rows[name].values())
+        results[name].update(
+            duty_shapes=shapes,
+            duty_shapes_ms=sum(s["launches"] * s["ms"] for s in shapes),
+            duty_shapes_bound_ms=sum(s["launches"] * s["bound_ms"] for s in shapes),
+            duty_shapes_cover=sum(s["launches"] for s in shapes) / total if total else 0.0,
+        )
+        log(f"kernel {name} at its duty's shapes: " + "; ".join(
+            f"{s['rows']} rows x{s['launches']}: {s['ms']:.4f} ms (bound {s['bound_ms']:.4f})" for s in shapes
+        ) + f"; launch-weighted {results[name]['duty_shapes_ms']:.1f} ms (bound "
+            f"{results[name]['duty_shapes_bound_ms']:.1f}) over {results[name]['duty_shapes_cover']:.3f} of its launches")
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +402,9 @@ def host_setup(n_validators: int, seed: int, workers: int) -> list:
 def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
     """The duty of validators `vals` through TorchImpl on the card, under
     the configuration already applied; returns (stage timings, launches
-    per kernel, the impl, the threshold batch). Every kernel in `launched`
-    must launch during the duty, and none in `idle`."""
+    per kernel, launches per row count per kernel, the impl, the threshold
+    batch). Every kernel in `launched` must launch during the duty, and
+    none in `idle`."""
     from charon_tpu_torch.crypto import bls, g1g2, shamir
     from charon_tpu_torch.ops import mont_kernels as MK
     from charon_tpu_torch.tbls.python_impl import sig_to_point
@@ -388,6 +447,7 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
     if not all(got):
         raise AssertionError(f"group signatures: {got.count(False)} False")
     launches = dict(MK.LAUNCHES)
+    rows = {name: dict(counts) for name, counts in MK.ROWS.items()}
     timings["duty_total"] = sum(timings.values())
 
     sample = random.Random(seed + 1).sample(range(n_validators), min(16, n_validators))
@@ -397,12 +457,17 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
             raise AssertionError(f"validator {v}: group signature differs from host recombination")
     log(f"group signatures of {len(sample)} sampled validators equal host recombination")
     log(f"launches over the duty {label}:", json.dumps(launches))
+    for name in launched:
+        top = sorted(rows[name].items(), key=lambda kv: (-kv[1], -kv[0]))
+        covered = sum(n for _, n in top[:DUTY_SHAPES]) / launches[name]
+        log(f"rows per launch of {name} ({len(top)} row counts; the top {DUTY_SHAPES} cover "
+            f"{covered:.3f} of its launches): " + ", ".join(f"{r} x{n}" for r, n in top[:8]))
     log(f"stage times {label} (s):", json.dumps(timings))
     if not all(launches[name] > 0 for name in launched):
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
     if any(launches[name] for name in idle):
         raise AssertionError(f"a kernel outside the {label} path launched: {launches}")
-    return timings, launches, impl, batch
+    return timings, launches, rows, impl, batch
 
 
 def profile_device(impl, batch, label: str) -> None:
@@ -494,11 +559,13 @@ def main(argv=None) -> int:
     run_tuner(sum(len(v[3]) for v in vals))
 
     KernelConfig(mxu_mont=True).apply()
-    _, int8_launches, impl, batch = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
+    _, int8_launches, int8_rows, impl, batch = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
     profile_device(impl, batch, "int8")
     KernelConfig().apply()
-    _, default_launches, _, _ = run_duty(vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS)
+    _, default_launches, default_rows, _, _ = run_duty(vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS)
     profile_device(impl, batch, "default")
+    duty_rows = {name: (int8_rows if name in INT8_KERNELS else default_rows)[name] for name in KERNELS}
+    time_duty_shapes(results, duty_rows, args.seed)
 
     kernels = []
     for name, (replaces, source, *_rest) in KERNELS.items():
