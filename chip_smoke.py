@@ -218,20 +218,46 @@ def _bound_ms(name, rows) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# SASS opcode classes counted per kernel, first match wins
+SASS_OPS = ("IMAD.WIDE", "IMAD", "IMMA", "LDSM", "LDS", "STS", "LDGSTS", "LDG", "STG", "LDL", "STL", "BAR")
+
+
+def sass_mix(sass: str) -> dict:
+    """{kernel function: (instructions, {opcode class: count})} of a
+    cuobjdump -sass listing."""
+    import collections
+    import re
+
+    out = {}
+    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+        mix = collections.Counter(
+            c for op in ops for c in [next((c for c in SASS_OPS if op == c or op.startswith(c + ".")), None)] if c
+        )
+        out[fn] = (len(ops), dict(mix))
+    return out
+
+
 def count_imma() -> None:
     """K4-K6 must issue their constant convolutions on the int8 tensor
-    cores: count IMMA instructions in each int8 library's SASS."""
+    cores: count IMMA instructions in each int8 library's SASS. Also
+    print every kernel's instruction mix (static counts: the kernels'
+    loops are unrolled, so a tile's work is close to its count)."""
     from pathlib import Path
 
     from charon_tpu_torch.ops import mont_kernels as MK
 
     cuobjdump = str(Path(MK.nvcc_path()).with_name("cuobjdump"))
-    for source in dict.fromkeys(KERNELS[name][1] for name in INT8_KERNELS):
+    int8_sources = {KERNELS[name][1] for name in INT8_KERNELS}
+    for source in dict.fromkeys(v[1] for v in KERNELS.values()):
         sass = subprocess.run([cuobjdump, "-sass", str(MK._lib_path(source))], check=True, capture_output=True, text=True).stdout
-        imma = sum("IMMA" in line for line in sass.splitlines())
-        if imma == 0:
-            raise AssertionError(f"{source}: no int8 tensor-core (IMMA) instruction in its SASS")
-        log(f"{source}: {imma} IMMA instructions in the SASS")
+        if source in int8_sources:
+            imma = sum("IMMA" in line for line in sass.splitlines())
+            if imma == 0:
+                raise AssertionError(f"{source}: no int8 tensor-core (IMMA) instruction in its SASS")
+            log(f"{source}: {imma} IMMA instructions in the SASS")
+        for fn, (n, mix) in sass_mix(sass).items():
+            log(f"sass {source} {fn[:60]}: {n} instructions; " + ", ".join(f"{k} {v}" for k, v in mix.items()))
 
 
 def edge_rows(name: str) -> tuple:
