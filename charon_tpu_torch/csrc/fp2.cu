@@ -16,7 +16,7 @@
 // (0.063 ns). Both are bound by bytes, which the fusion already holds to
 // one read of each input and one write of each output.
 //
-// K2 is tiled (fp2_tile.cuh): 32 elements a tile, their operands fetched
+// K2 is tiled (tile.cuh): 32 elements a tile, their operands fetched
 // into shared memory with coalesced 16-byte asynchronous copies (the next
 // tile's while this one computes) and the results stored 16 bytes a
 // thread, and one CIOS product (mont_field.cuh, K1's) a thread, 96 threads
@@ -25,7 +25,7 @@
 // blocks, four an SM. K3 keeps one element a thread, its operands in
 // registers.
 
-#include "fp2_tile.cuh"
+#include "tile.cuh"
 #include "mont_field.cuh"
 
 namespace charon {
@@ -35,12 +35,13 @@ namespace charon {
 // and the staged operands fit without spills.
 constexpr int kFp2MulBlocks = 4;
 
-__global__ void __launch_bounds__(kTileThreads, kFp2MulBlocks)
-    fp2_mul_kernel(Fp2Ptrs p, int64_t rows, Modulus m) {
+__global__ void __launch_bounds__(kFp2MulThreads, kFp2MulBlocks)
+    fp2_mul_kernel(TilePtrs<4, 2> p, int64_t rows, Modulus m) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Fp2Tile& t = *reinterpret_cast<Fp2Tile*>(smem);
-  fp2_mul_tiles(p, rows, m, t, [&](const uint32_t (&x)[kFp2Limbs], const uint32_t (&y)[kFp2Limbs],
-                                   uint32_t (&r)[kFp2Limbs]) { mont_mul<kFp2Limbs>(x, y, r, m); });
+  Fp2MulTile& t = *reinterpret_cast<Fp2MulTile*>(smem);
+  fp2_mul_tiles(p, rows, m, t, [] {},
+                [&](const uint32_t (&x)[kFp2Limbs], const uint32_t (&y)[kFp2Limbs],
+                    uint32_t (&r)[kFp2Limbs], bool) { mont_mul<kFp2Limbs>(x, y, r, m); });
 }
 
 template <int N>
@@ -66,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace charon
 
 // The launch geometry comes from ops/mont_kernels.fp2_geometry: `elems`
-// and `threads` must be the tile's, `smem` sizeof(Fp2Tile), and `grid`
+// and `threads` must be the tile's, `smem` sizeof(Fp2MulTile), and `grid`
 // between 1 and the number of tiles.
 extern "C" int charon_fp2_mul(const int64_t* a0, const int64_t* a1, const int64_t* b0,
                               const int64_t* b1, int64_t* c0, int64_t* c1, int64_t rows,
@@ -75,13 +76,12 @@ extern "C" int charon_fp2_mul(const int64_t* a0, const int64_t* a1, const int64_
   using namespace charon;
   if (rows <= 0) return 0;
   const int64_t tiles = (rows + kTileElems - 1) / kTileElems;
-  if (n_limbs != kFp2Limbs || elems != kTileElems || threads != kTileThreads ||
-      smem != static_cast<int>(sizeof(Fp2Tile)) || grid < 1 || grid > tiles)
+  if (n_limbs != kFp2Limbs || elems != kTileElems || threads != kFp2MulThreads ||
+      smem != static_cast<int>(sizeof(Fp2MulTile)) || grid < 1 || grid > tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Modulus m = make_modulus(mod_limbs, n_limbs, pinv);
-  const Fp2Ptrs p{{a0, a1, b0, b1}, {c0, c1}};
-  fp2_mul_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p, rows, m);
-  return static_cast<int>(cudaGetLastError());
+  const TilePtrs<4, 2> p{{a0, a1, b0, b1}, {c0, c1}};
+  return launch_tiled(fp2_mul_kernel, grid, threads, smem, stream, p, rows,
+                      make_modulus(mod_limbs, n_limbs, pinv));
 }
 
 extern "C" int charon_fp2_sqr(const int64_t* a0, const int64_t* a1, int64_t* c0, int64_t* c1,

@@ -1,6 +1,6 @@
-// Per-thread BLS12-381 field arithmetic on 24-bit limbs, shared by the
-// Montgomery-product kernel (mont_mul.cu, K1) and the fused Fp2 kernels
-// (fp2.cu, K2/K3).
+// Per-thread BLS12-381 field arithmetic on 24-bit limbs, shared by every
+// kernel: the Montgomery product of K1-K3 (mont_mul.cu, fp2.cu), and the
+// modular sums and final conditional subtraction of K4-K6 (mont_mxu.cuh).
 //
 // Limb layout: the port's public interface, int64 tensors of 24-bit limbs
 // (Fp: 16 limbs, Fr: 11 limbs, little-endian), so the Montgomery radix is
@@ -10,13 +10,13 @@
 // (a 24x24-bit product is < 2^48), and columns accumulate in 64 bits with
 // no carry handling until the end (2N products per column < 2^54).
 //
-// Design: one thread per field element (K2/K3: per Fp2 element), operands
-// in registers, a coarsely integrated operand-scanning (CIOS) Montgomery
-// product with lazy carries, one sequential carry pass and one conditional
-// subtraction. The TPU kernels' 256-row tiles, parallel-carry Kogge-Stone
-// passes and bool-free flag tricks were workarounds for Mosaic's vector
-// units and have no counterpart here: a thread resolves its own carries in
-// order, and a branch-free select replaces the flag arithmetic.
+// Design: one product a thread, operands in registers, a coarsely
+// integrated operand-scanning (CIOS) Montgomery product with lazy carries,
+// one sequential carry pass and one conditional subtraction. The TPU
+// kernels' 256-row tiles, parallel-carry Kogge-Stone passes and bool-free
+// flag tricks were workarounds for Mosaic's vector units and have no
+// counterpart here: a thread resolves its own carries in order, and a
+// branch-free select replaces the flag arithmetic.
 
 #pragma once
 

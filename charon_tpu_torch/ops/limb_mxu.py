@@ -95,14 +95,18 @@ def _tables(ctx: ModCtx, device: torch.device):
 
 
 def kernel_tables_np(ctx: ModCtx) -> np.ndarray:
-    """The kernels' table block, int8, 6144 bytes: nT0 | nT1 (each padded to
-    K_DEPTH x NINV_COLS, row-major) | pT0 | pT1 (K_DEPTH x MOD_COLS). The
-    padding is zeros, so padded rows and columns add nothing."""
+    """The kernels' table block, int8, 6144 bytes, in the order their
+    shared memory holds it, so that they copy it 16 bytes at a time with
+    no index arithmetic: nT0 | nT1 (each padded to K_DEPTH x NINV_COLS) |
+    pT0 | pT1 (K_DEPTH x MOD_COLS), each table as [k step][column][16
+    depths], the 16-deep column-major planes the MMA reads as its B
+    operand: element [ks][c][d] is T[16 ks + d, c]. The padding is zeros,
+    so padded rows and columns add nothing."""
     parts = []
     for T, cols in zip((*_ninv_toeplitz(ctx), *_modulus_toeplitz(ctx)), (NINV_COLS,) * 2 + (MOD_COLS,) * 2):
         pad = np.zeros((K_DEPTH, cols), np.int8)
         pad[: T.shape[0], : T.shape[1]] = T
-        parts.append(pad.ravel())
+        parts.append(pad.reshape(K_DEPTH // 16, 16, cols).transpose(0, 2, 1).ravel())
     return np.concatenate(parts)
 
 

@@ -15,10 +15,12 @@ K4-K6 run the two constant convolutions of every Montgomery product on the
 int8 tensor cores (ops/limb_mxu.py); limb.set_mxu, owned by
 core/autotune.KernelConfig, routes the products to them.
 
-K2 and K5 are tiled (csrc/fp2_tile.cuh): 32 Fp2 elements a tile, one
-Montgomery product a thread, persistent blocks. fp2_geometry computes
-their launch geometry from the row count and the card's SM count, and the
-wrapper passes it to the C entry point, which checks it.
+K4, K2, K5 and K6 are tiled (csrc/tile.cuh): operands fetched into shared
+memory a tile at a time, one Montgomery product a thread, persistent
+blocks. mont_geometry (K4) and fp2_geometry (K2, K5, K6) compute their
+launch geometry from the row count and the card's SM count, and the
+wrapper passes it to the C entry point, which checks it. K4, K5 and K6
+share one int8 tensor-core product (csrc/mont_mxu.cuh).
 
 Beside each wrapper is its plain PyTorch version: the int64 limb algorithm
 of limb.mont_mul (K4: limb_mxu.mont_mul_mxu) and the Fp2 formulas. A
@@ -62,54 +64,98 @@ NVCC_FLAGS = (
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # After the operand pointers: rows, n_limbs, modulus limbs (host), pinv,
 # stream. K4-K6 take the int8 piece tables (device) between the two; the
-# tiled K2 and K5 take their geometry (elements a tile, threads, grid,
-# dynamic shared bytes) after rows.
+# tiled K2, K4, K5 and K6 take their geometry (elements a tile, threads,
+# grid, dynamic shared bytes) after rows.
 _TAIL = [_I64, _INT, _PTR, _I64, _PTR]
 _TILED_TAIL = [_I64] + [_INT] * 4 + _TAIL[1:]
 # source file -> {exported kernel function: its C signature}
 _SOURCES = {
     "mont_mul.cu": {"charon_mont_mul": [_PTR] * 3 + _TAIL},
     "fp2.cu": {"charon_fp2_mul": [_PTR] * 6 + _TILED_TAIL, "charon_fp2_sqr": [_PTR] * 4 + _TAIL},
-    "mont_mxu.cu": {"charon_mont_mul_mxu": [_PTR] * 4 + _TAIL},
-    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TILED_TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TAIL},
+    "mont_mxu.cu": {"charon_mont_mul_mxu": [_PTR] * 4 + _TILED_TAIL},
+    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TILED_TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TILED_TAIL},
 }
 
-# The tiled kernels' constants, mirrored from csrc: Fp2 elements a tile
-# (fp2_tile.cuh kTileElems), blocks resident on an SM (the second
-# argument of each kernel's __launch_bounds__), and dynamic shared bytes a
-# block: sizeof Fp2Tile (four staged operand tiles of 144-byte rows, three
-# product and two output limb planes of 32-bit words) and sizeof
-# Fp2MxuShared (adds the 16-byte piece rows, one 32-column pass of column
-# sums and the tables).
+# The tiled kernels' constants, mirrored from csrc: Fp2 elements a tile of
+# K2/K5/K6 (tile.cuh kTileElems) and their roles (threads a tile over
+# TILE_ELEMS); K4's tile, a warp's rows for a launch of at most a warp's
+# rows (mont_mxu.cuh kWarpRows), else MONT_TILE_ROWS (mont_mxu.cu
+# kMontMxuThreads); blocks resident on an SM (the second argument of each
+# kernel's __launch_bounds__).
 TILE_ELEMS = 32
-_TILE_BYTES = 4 * TILE_ELEMS * 144 + 5 * 16 * (TILE_ELEMS + 1) * 4
-_RESIDENT = {"fp2_mul": 4, "fp2_mul_mxu": 4}
+WARP_ROWS = 32
+MONT_TILE_ROWS = 128
+_ROLES = {"fp2_mul": 3, "fp2_mul_mxu": 3, "fp2_sqr_mxu": 2}
+_RESIDENT = {"fp2_mul": 4, "fp2_mul_mxu": 4, "fp2_sqr_mxu": 6, "mont_mul_mxu_fp": 3, "mont_mul_mxu_fr": 3}
+
+
+def _tile_smem(n: int, elems: int, ins: int, outs: int, prods: int = 0, conv: int = 0) -> int:
+    """sizeof a tiled kernel's shared struct: the staged operand rows (an
+    even limb count padded by two int64 words), the product and output
+    limb planes of 32-bit words (elems + 1 a plane), and for the int8
+    kernels, 32-byte aligned after them, mont_mxu.cuh's MxuConv of `conv`
+    rows: 16-byte piece rows, one 32-column pass of column sums at a
+    stride of conv + 4 words, and the 6,144-byte table block."""
+    row = n + 2 if n % 2 == 0 else n
+    size = -(-(ins * elems * row * 8 + (outs + prods) * n * (elems + 1) * 4) // 16) * 16
+    if conv:
+        size = -(-size // 32) * 32 + 2 * 2 * conv * 16 + 32 * (conv + 4) * 4 + 6144
+    return size
+
+
+# (kernel, elements a tile) -> dynamic shared bytes a block
 _SMEM = {
-    "fp2_mul": _TILE_BYTES,
-    "fp2_mul_mxu": _TILE_BYTES + 2 * 2 * 3 * TILE_ELEMS * 16 + 32 * (3 * TILE_ELEMS + 4) * 4 + 2 * 2 * (32 + 64) * 16,
+    ("fp2_mul", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 4, 2, prods=3),
+    ("fp2_mul_mxu", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 4, 2, prods=3, conv=3 * TILE_ELEMS),
+    ("fp2_sqr_mxu", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 2, 2, conv=2 * TILE_ELEMS),
+    **{(f"mont_mul_mxu_{name}", e): _tile_smem(n, e, 2, 1, conv=e)
+       for name, n in (("fp", 16), ("fr", 11)) for e in (WARP_ROWS, MONT_TILE_ROWS)},
 }
 
 
 @dataclass(frozen=True)
-class Fp2Geometry:
+class Geometry:
     """A tiled launch: block b takes tiles b, b + grid, b + 2 grid, ...;
     tile t is rows [t elems, min(rows, (t + 1) elems))."""
 
     rows: int
-    elems: int  # Fp2 elements a tile
+    elems: int  # elements a tile
     threads: int  # a block's threads: one Montgomery product each
     grid: int  # blocks
     smem: int  # dynamic shared bytes a block
 
 
-def fp2_geometry(kernel: str, rows: int, sm_count: int) -> Fp2Geometry:
-    """The launch of tiled kernel `kernel` ("fp2_mul" or "fp2_mul_mxu") over
-    rows > 0 on a card of sm_count SMs: one block a tile up to the blocks
-    the card holds at once, then that many persistent blocks, so a large
-    launch runs in whole waves and loads its tables once a block."""
+def fp2_geometry(kernel: str, rows: int, sm_count: int) -> Geometry:
+    """The launch of tiled Fp2 kernel `kernel` ("fp2_mul", "fp2_mul_mxu" or
+    "fp2_sqr_mxu") over rows > 0 on a card of sm_count SMs: one block a
+    tile up to the blocks the card holds at once, then that many
+    persistent blocks, so a large launch runs in whole waves and loads its
+    tables once a block."""
     tiles = -(-rows // TILE_ELEMS)
     grid = min(tiles, sm_count * _RESIDENT[kernel])
-    return Fp2Geometry(rows, TILE_ELEMS, 3 * TILE_ELEMS, grid, _SMEM[kernel])
+    return Geometry(rows, TILE_ELEMS, _ROLES[kernel] * TILE_ELEMS, grid, _SMEM[kernel, TILE_ELEMS])
+
+
+def mont_geometry(kernel: str, rows: int, sm_count: int) -> Geometry:
+    """The launch of K4 (`kernel` "mont_mul_mxu_fp" or "mont_mul_mxu_fr")
+    over rows > 0: one one-warp block for at most a warp's rows, so a
+    launch of 1-32 rows runs no dead warps through the table copy; above
+    that, tiles of MONT_TILE_ROWS rows, one block a tile up to the blocks
+    the card holds at once, then that many persistent blocks."""
+    elems = WARP_ROWS if rows <= WARP_ROWS else MONT_TILE_ROWS
+    tiles = -(-rows // elems)
+    grid = min(tiles, sm_count * _RESIDENT[kernel])
+    return Geometry(rows, elems, elems, grid, _SMEM[kernel, elems])
+
+
+def geometry(kernel: str, rows: int, sm_count: int) -> Geometry | None:
+    """The tiled launch of `kernel` (a LAUNCHES name), or None for an
+    untiled kernel (K1, K3)."""
+    if kernel in _ROLES:
+        return fp2_geometry(kernel, rows, sm_count)
+    if kernel in _RESIDENT:
+        return mont_geometry(kernel, rows, sm_count)
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,7 +265,7 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
     """Check the CUDA operands (inputs then outputs, one shape), launch on
     the current stream, and raise on a refused launch. `tables` passes the
     int8 piece tables of ctx on the operands' device (K4-K6); a tiled
-    kernel (K2, K5) gets its fp2_geometry."""
+    kernel (K2, K4-K6) gets its geometry."""
     ref = tensors[0]
     for t in tensors:
         if t.device != ref.device or t.device.type != "cuda":
@@ -237,7 +283,7 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
     extra = (limb_mxu.device_tables(ctx, ref.device).data_ptr(),) if tables else ()
     geom = ()
     if kernel in _RESIDENT:
-        g = fp2_geometry(kernel, rows, sm_count(ref.device))
+        g = geometry(kernel, rows, sm_count(ref.device))
         geom = (g.elems, g.threads, g.grid, g.smem)
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
@@ -250,6 +296,15 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
         raise RuntimeError(f"{kernel} launch failed: {msg.decode()} ({rc})")
     LAUNCHES[kernel] += 1
     ROWS[kernel][rows] = ROWS[kernel].get(rows, 0) + 1
+
+
+def _aligned(kernel: str, tensors):
+    """Contiguous operands; for a tiled kernel, whose tiles move in 16-byte
+    words, a copy of any view that starts between them."""
+    tensors = [x.contiguous() for x in tensors]
+    if kernel in _RESIDENT:
+        tensors = [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
+    return tensors
 
 
 def _operands(tensors):
@@ -339,9 +394,10 @@ def _mont_kernel(source: str, fn: str, kernel: str, plain, ctx: ModCtx, a, b, ta
         return plain(ctx, a, b)
     if not limb.has_kernel_instance(ctx):
         raise ValueError(f"{kernel} has no instance for {ctx.name}")
-    a, b = a.contiguous(), b.contiguous()
+    name = f"{kernel}_{ctx.name}"
+    a, b = _aligned(name, (a, b))
     out = torch.empty_like(a)
-    _launch(source, fn, ctx, f"{kernel}_{ctx.name}", (a, b, out), tables=tables)
+    _launch(source, fn, ctx, name, (a, b, out), tables=tables)
     return out
 
 
@@ -416,9 +472,7 @@ def _fp2_kernel(source: str, fn: str, kernel: str, plain, ctx: ModCtx, operands,
     if on_cpu:
         return plain(ctx, *operands)
     _check_fp2_ctx(ctx, kernel)
-    ins = [x.contiguous() for x in operands]
-    if kernel in _RESIDENT:  # tiles move in 16-byte words: copy a view that starts between them
-        ins = [x if x.data_ptr() % 16 == 0 else x.clone() for x in ins]
+    ins = _aligned(kernel, operands)
     c0, c1 = torch.empty_like(ins[0]), torch.empty_like(ins[0])
     _launch(source, fn, ctx, kernel, (*ins, c0, c1), tables=tables)
     return c0, c1

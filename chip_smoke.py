@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      K4 Fr, K5, K6) against its plain PyTorch version on the same CUDA
      tensors at 8192, 65533 and 65536 rows, on seeded reduced inputs plus
      edge values — exactly equal — and K4-K6 against K1-K3 on the same
-     operands; the tiled K2 and K5 also at the edges of their tiles and
-     waves (1, 2, 3, a tile less one, a tile, a tile and one, an odd count
-     above one wave of resident blocks); each kernel's time (alone: 200
+     operands; the tiled K2, K4, K5 and K6 also at the edges of their
+     tiles and waves (1, 2, 3, 31, 32, 33, a large launch's tile less one,
+     the tile and one more, an odd count above one wave of resident
+     blocks); each kernel's time (alone: 200
      queued launches of its C entry point; through its wrapper; plain)
      beside its bound;
   4. the host setup of the duty (keys, 4-of-7 splits, partials), then the
@@ -91,7 +92,7 @@ KERNELS = {
 }
 INT8_KERNELS = tuple(k for k in KERNELS if "_mxu" in k)
 DEFAULT_KERNELS = tuple(k for k in KERNELS if "_mxu" not in k)
-TILED_KERNELS = ("fp2_mul", "fp2_mul_mxu")
+TILED_KERNELS = ("fp2_mul", "fp2_mul_mxu", "mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_sqr_mxu")
 CHECK_ROWS = (8192, 65533, 65536)
 TIMED_ROWS = 65536
 DUTY_SHAPES = 4  # row counts a kernel is timed at beyond TIMED_ROWS
@@ -179,8 +180,8 @@ def _time_ms(fn, iters: int, queued: bool = False) -> float:
 
 def _raw_launcher(name, ctx, ops):
     """A closure that launches the kernel alone — the C entry point with
-    fixed pointers and, for K2 and K5, the wrapper's geometry — so the
-    timed loop holds no wrapper overhead."""
+    fixed pointers and, for the tiled kernels, the wrapper's geometry — so
+    the timed loop holds no wrapper overhead."""
     import torch
     from charon_tpu_torch.ops import limb_mxu
     from charon_tpu_torch.ops import mont_kernels as MK
@@ -194,7 +195,7 @@ def _raw_launcher(name, ctx, ops):
     rows = ops[0].numel() // ctx.n_limbs
     geom = ()
     if name in TILED_KERNELS:
-        g = MK.fp2_geometry(name, rows, MK.sm_count(ops[0].device))
+        g = MK.geometry(name, rows, MK.sm_count(ops[0].device))
         geom = (g.elems, g.threads, g.grid, g.smem)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -261,18 +262,22 @@ def count_imma() -> None:
 
 
 def edge_rows(name: str) -> tuple:
-    """Row counts at the edges of a tiled kernel's tiles and waves."""
+    """Row counts at the edges of a tiled kernel's tiles and waves: a
+    warp's rows (K4's one-warp launches), a large launch's tile (K4: 128
+    rows; K2, K5, K6: 32), and one wave of resident blocks."""
     import torch
     from charon_tpu_torch.ops import mont_kernels as MK
 
-    e = MK.TILE_ELEMS
-    wave = MK.sm_count(torch.device("cuda")) * MK._RESIDENT[name] * e
-    return (1, 2, 3, e - 1, e, e + 1, wave + 2 * e + 1)
+    sms = MK.sm_count(torch.device("cuda"))
+    e = MK.geometry(name, 1 << 30, sms).elems
+    wave = sms * MK._RESIDENT[name] * e
+    return tuple(sorted({1, 2, 3, 31, 32, 33, e - 1, e, e + 1, wave + 2 * e + 1}))
 
 
 def check_kernels(seed: int) -> dict:
-    """Each kernel == its plain version at main-path row counts, and K2/K5
-    also at their tile edges (K4-K6 == K1-K3 on the same operands); times."""
+    """Each kernel == its plain version at main-path row counts, and the
+    tiled kernels also at their tile edges (K4-K6 == K1-K3 on the same
+    operands); times."""
     import torch
     from charon_tpu_torch.ops import mont_kernels as MK
 

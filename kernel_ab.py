@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time the fused Fp2 multiply kernels of two checkouts on one card.
+"""Time the tiled kernels of two checkouts on one card.
 
-    python3 kernel_ab.py --base DIR [--rows 65536,48,24576,6144,384]
+    python3 kernel_ab.py --base DIR [--kernels K,...] [--rows 65536,...]
 
 DIR is another checkout of the repository (for example an earlier commit
-unpacked with `git archive`). The script builds K2 (`charon_fp2_mul`,
-csrc/fp2.cu) and K5 (`charon_fp2_mul_mxu`, csrc/fp2_mxu.cu) from DIR's
-charon_tpu_torch/csrc and from this tree's with nvcc, holds both versions
-against this tree's plain version on the same operands (exactly equal),
-and times them in turns (base, this, this, base) at each row count with
-chip_smoke's timer (CUDA events over 200 queued launches of the C entry
-point alone). Each version's C entry point is called by its own parameter
-names, so a base whose kernels take no launch geometry works as well.
-Prints the card, one line per (kernel, rows), then one JSON object.
+unpacked with `git archive`). The script builds, from DIR's
+charon_tpu_torch/csrc and from this tree's with nvcc, K2 (`charon_fp2_mul`,
+csrc/fp2.cu), K5 and K6 (`charon_fp2_mul_mxu`, `charon_fp2_sqr_mxu`,
+csrc/fp2_mxu.cu) and K4 over Fp and Fr (`charon_mont_mul_mxu`,
+csrc/mont_mxu.cu), holds both versions against this tree's plain version
+on the same operands (exactly equal), and times them in turns (base, this,
+this, base) with chip_smoke's timer (CUDA events over 200 queued launches
+of the C entry point alone). By default each kernel is timed at 65,536
+rows and at the four row counts its duty launches it at most often
+(chip_smoke.py's rows-per-launch map; K4 Fr has two); --rows replaces
+those for every kernel. Each version's C entry point is called by its own
+parameter names, so a base whose kernels take no launch geometry works as
+well, and gets the int8 table block from its own ops/limb_mxu.py, in the
+layout its kernels read. Prints the card, one line per (kernel, rows),
+then one JSON object.
 """
 
 from __future__ import annotations
@@ -27,7 +33,15 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-KERNELS = {"fp2_mul": ("fp2.cu", "charon_fp2_mul"), "fp2_mul_mxu": ("fp2_mxu.cu", "charon_fp2_mul_mxu")}
+# kernel -> (source, C function, the duty's most frequent row counts)
+KERNELS = {
+    "fp2_mul": ("fp2.cu", "charon_fp2_mul", (48, 24576, 6144, 384)),
+    "fp2_mul_mxu": ("fp2_mxu.cu", "charon_fp2_mul_mxu", (48, 24576, 6144, 384)),
+    "mont_mul_mxu_fp": ("mont_mxu.cu", "charon_mont_mul_mxu", (1, 384, 8, 1024)),
+    "mont_mul_mxu_fr": ("mont_mxu.cu", "charon_mont_mul_mxu", (4096, 1024)),
+    "fp2_sqr_mxu": ("fp2_mxu.cu", "charon_fp2_sqr_mxu", (9, 2048, 8192, 18)),
+}
+TIMED_ROWS = 65536
 _TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
 
 
@@ -41,13 +55,13 @@ def c_params(source: Path, fn: str) -> list[tuple[str, str]]:
     return out
 
 
-def build(csrc: Path, out_dir: Path) -> dict[str, ctypes.CDLL]:
+def build(csrc: Path, out_dir: Path, sources) -> dict[str, ctypes.CDLL]:
     """One nvcc per source, all at once, with the port's flags."""
     from charon_tpu_torch.ops import mont_kernels as MK
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for source, _ in KERNELS.values():
+    for source in sources:
         lib = out_dir / f"lib{Path(source).stem}.so"
         procs[source] = (subprocess.Popen(
             [MK.nvcc_path(), *MK.NVCC_FLAGS, "-o", str(lib), str(csrc / source)],
@@ -62,23 +76,36 @@ def build(csrc: Path, out_dir: Path) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def launcher(lib, csrc: Path, name: str, ctx, ops, outs):
+def limb_mxu_of(root: Path, tag: str):
+    """The ops/limb_mxu.py module of the checkout at `root`, loaded under
+    its own name (it imports only this tree's limb module, whose interface
+    it shares)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_limb_mxu_{tag}", root / "charon_tpu_torch" / "ops" / "limb_mxu.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launcher(lib, csrc: Path, limb_mxu, name: str, ctx, ops, outs):
     """A closure launching `name` from `lib` on fixed operands, its
-    arguments taken by the C parameter names."""
+    arguments taken by the C parameter names, its tables from the
+    version's own `limb_mxu`."""
     import torch
-    from charon_tpu_torch.ops import limb_mxu
     from charon_tpu_torch.ops import mont_kernels as MK
 
-    source, fn_name = KERNELS[name]
+    source, fn_name, _ = KERNELS[name]
     params = c_params(csrc / source, fn_name)
     fn = getattr(lib, fn_name)
     fn.argtypes = [ctypes.c_void_p if "*" in t else _TYPES[t.removeprefix("const ")] for t, _ in params]
     fn.restype = ctypes.c_int
     rows = ops[0].shape[0]
-    g = MK.fp2_geometry(name, rows, MK.sm_count(ops[0].device))
+    g = MK.geometry(name, rows, MK.sm_count(ops[0].device))
+    names = (("a", "b"), ("out",)) if name.startswith("mont_mul") else (("a0", "a1", "b0", "b1"), ("c0", "c1"))
     value = {
-        **{k: t.data_ptr() for k, t in zip(("a0", "a1", "b0", "b1"), ops)},
-        **{k: t.data_ptr() for k, t in zip(("c0", "c1"), outs)},
+        **{k: t.data_ptr() for k, t in zip(names[0], ops)},
+        **{k: t.data_ptr() for k, t in zip(names[1], outs)},
         "tables": limb_mxu.device_tables(ctx, ops[0].device).data_ptr(),
         "rows": rows, "elems": g.elems, "threads": g.threads, "grid": g.grid, "smem": g.smem,
         "n_limbs": ctx.n_limbs, "mod_limbs": ctx.limbs.ctypes.data, "pinv": ctx.pinv,
@@ -97,8 +124,12 @@ def launcher(lib, csrc: Path, name: str, ctx, ops, outs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", required=True, type=Path, help="root of the other checkout")
-    ap.add_argument("--rows", default="65536,48,24576,6144,384")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help="comma-separated names of KERNELS")
+    ap.add_argument("--rows", default=None, help="row counts for every kernel (default: 65,536 and its duty's)")
     args = ap.parse_args(argv)
+    names = args.kernels.split(",")
+    if not set(names) <= set(KERNELS):
+        ap.error(f"--kernels: choose from {', '.join(KERNELS)}")
 
     import torch
 
@@ -109,21 +140,24 @@ def main(argv=None) -> int:
 
     card = cs.card_line()
     print(card, flush=True)
-    versions = {
-        "base": args.base.resolve() / "charon_tpu_torch" / "csrc",
-        "this": MK.CSRC,
-    }
-    libs = {v: build(csrc, MK.BUILD_DIR / "ab" / v) for v, csrc in versions.items()}
+    roots = {"base": args.base.resolve(), "this": MK.CSRC.parent.parent}
+    versions = {v: root / "charon_tpu_torch" / "csrc" for v, root in roots.items()}
+    tables = {v: limb_mxu_of(root, v) for v, root in roots.items()}
+    sources = sorted({KERNELS[n][0] for n in names})
+    libs = {v: build(csrc, MK.BUILD_DIR / "ab" / v, sources) for v, csrc in versions.items()}
     results = []
-    for name, (source, _) in KERNELS.items():
-        plain = MK.fp2_mul_plain if name == "fp2_mul" else MK.fp2_mul_mxu_plain
-        for rows in (int(r) for r in args.rows.split(",")):
+    for name in names:
+        source, _, duty_rows = KERNELS[name]
+        plain = getattr(MK, name.removesuffix("_fp").removesuffix("_fr") + "_plain")
+        rows_list = [int(r) for r in args.rows.split(",")] if args.rows else [TIMED_ROWS, *duty_rows]
+        for rows in rows_list:
             ctx, ops = cs._operands(name, rows, 1 + rows, "cuda")
             want = plain(ctx, *ops)
+            want = (want,) if isinstance(want, torch.Tensor) else want
             runs = {}
             for v, csrc in versions.items():
-                outs = [torch.empty_like(ops[0]) for _ in range(2)]
-                launch = launcher(libs[v][source], csrc, name, ctx, ops, outs)
+                outs = [torch.empty_like(ops[0]) for _ in want]
+                launch = launcher(libs[v][source], csrc, tables[v], name, ctx, ops, outs)
                 launch()
                 torch.cuda.synchronize()
                 if not all(torch.equal(o, w) for o, w in zip(outs, want)):

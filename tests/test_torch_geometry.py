@@ -1,12 +1,13 @@
-"""PyTorch port: the launch geometry of the tiled kernels K2 and K5.
+"""PyTorch port: the launch geometry of the tiled kernels K2, K4, K5, K6.
 
-ops/mont_kernels.fp2_geometry turns a row count and the card's SM count
-into the tiled launch (elements a tile, threads, grid, dynamic shared
-bytes); the C entry points check it and the kernels walk it. Here, on the
-CPU: every row is computed by exactly one block, once; a block stays
-inside the card's limits on threads and shared memory; the resident blocks
-fit one SM; and the constants the wrapper mirrors, and the C signatures it
-declares, match the sources in charon_tpu_torch/csrc.
+ops/mont_kernels.fp2_geometry (K2, K5, K6) and mont_geometry (K4, Fp and
+Fr) turn a row count and the card's SM count into the tiled launch
+(elements a tile, threads, grid, dynamic shared bytes); the C entry points
+check it and the kernels walk it. Here, on the CPU: every row is computed
+by exactly one block, once; a block stays inside the card's limits on
+threads and shared memory; the resident blocks fit one SM; and the
+constants the wrapper mirrors, and the C signatures it declares, match the
+sources in charon_tpu_torch/csrc.
 """
 
 from __future__ import annotations
@@ -20,9 +21,13 @@ import pytest
 from charon_tpu_torch.ops import mont_kernels as MK
 
 CSRC = pathlib.Path(MK.__file__).resolve().parent.parent / "csrc"
-TILED = ["fp2_mul", "fp2_mul_mxu"]
+TILED = ["fp2_mul", "fp2_mul_mxu", "fp2_sqr_mxu"]
+MONT = ["mont_mul_mxu_fp", "mont_mul_mxu_fr"]
 ROWS = [1, 2, 3, 31, 32, 33, 135, 3072, 4099, 6144, 8192, 12288, 16384, 24576,
         33857, 65533, 65536, 65537, 262147]
+# K4's own edges and its duty's row counts
+MONT_ROWS = [1, 2, 8, 9, 18, 31, 32, 33, 127, 128, 129, 384, 1024, 2048, 4096, 8192,
+             50945, 65536, 262147]
 H100_SMS = 132
 # What one block may take on the card, and what an SM holds (H100)
 MAX_THREADS = 1024
@@ -34,7 +39,7 @@ SM_REGISTERS = 65536
 
 def _block_tiles(g, block):
     """The rows block `block` computes, tile by tile: the kernels' loop
-    (fp2_tile.cuh fp2_mul_tiles) walks tiles block, block + grid, ..."""
+    (tile.cuh tile_loop) walks tiles block, block + grid, ..."""
     tiles = -(-g.rows // g.elems)
     return [range(t * g.elems, min(g.rows, (t + 1) * g.elems)) for t in range(block, tiles, g.grid)]
 
@@ -53,12 +58,43 @@ def test_geometry_covers_every_row_once(kernel, rows):
     assert {len(_block_tiles(g, b)) for b in range(g.grid)} <= {tiles // g.grid, -(-tiles // g.grid)}
 
 
+@pytest.mark.parametrize("rows", MONT_ROWS)
+@pytest.mark.parametrize("kernel", MONT)
+def test_mont_geometry_covers_every_row_once(kernel, rows):
+    """K4: one one-warp block up to a warp's rows, else 128-row tiles in at
+    most the card's resident blocks."""
+    g = MK.mont_geometry(kernel, rows, H100_SMS)
+    tiles = -(-rows // g.elems)
+    seen = [r for b in range(g.grid) for tile in _block_tiles(g, b) for r in tile]
+    assert sorted(seen) == list(range(rows))
+    assert g.elems == g.threads == (32 if rows <= 32 else MK.MONT_TILE_ROWS)
+    assert g.grid == min(tiles, H100_SMS * MK._RESIDENT[kernel])
+    assert {len(_block_tiles(g, b)) for b in range(g.grid)} <= {tiles // g.grid, -(-tiles // g.grid)}
+    assert MK.geometry(kernel, rows, H100_SMS) == g
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+@pytest.mark.parametrize("kernel", MONT)
+def test_mont_geometry_within_card_limits(kernel, sms):
+    for rows in MONT_ROWS:
+        g = MK.mont_geometry(kernel, rows, sms)
+        assert g.threads % 32 == 0 and g.threads <= MAX_THREADS
+        assert g.smem <= MAX_SMEM
+        assert 1 <= g.grid <= min(2**31 - 1, sms * MK._RESIDENT[kernel])
+        if g.threads == MK.MONT_TILE_ROWS:
+            # the blocks counted as resident fit one SM's shared memory and registers
+            assert MK._RESIDENT[kernel] * (g.smem + BLOCK_RESERVED) <= SM_SHARED
+            assert SM_REGISTERS // (MK._RESIDENT[kernel] * g.threads) >= 128
+        else:
+            assert g.grid == 1
+
+
 @pytest.mark.parametrize("sms", [1, 78, 114, 132])
 @pytest.mark.parametrize("kernel", TILED)
 def test_geometry_within_card_limits(kernel, sms):
     for rows in ROWS:
         g = MK.fp2_geometry(kernel, rows, sms)
-        assert g.threads == 3 * g.elems and g.threads % 32 == 0
+        assert g.threads == MK._ROLES[kernel] * g.elems and g.threads % 32 == 0
         assert g.threads <= MAX_THREADS
         assert g.smem <= MAX_SMEM
         assert g.grid <= min(2**31 - 1, sms * MK._RESIDENT[kernel])
@@ -68,23 +104,44 @@ def test_geometry_within_card_limits(kernel, sms):
 
 
 def test_geometry_mirrors_the_sources():
-    tile = (CSRC / "fp2_tile.cuh").read_text()
+    tile = (CSRC / "tile.cuh").read_text()
+    mxu = (CSRC / "mont_mxu.cuh").read_text()
+    k4 = (CSRC / "mont_mxu.cu").read_text()
+    k56 = (CSRC / "fp2_mxu.cu").read_text()
     assert re.search(r"kTileElems = (\d+);", tile).group(1) == str(MK.TILE_ELEMS)
+    assert re.search(r"kWarpRows = (\d+);", mxu).group(1) == str(MK.WARP_ROWS)
+    assert re.search(r"kMontMxuThreads = (\d+);", k4).group(1) == str(MK.MONT_TILE_ROWS)
     blocks = {
         "fp2_mul": re.search(r"kFp2MulBlocks = (\d+);", (CSRC / "fp2.cu").read_text()),
-        "fp2_mul_mxu": re.search(r"kFp2MulMxuBlocks = (\d+);", (CSRC / "fp2_mxu.cu").read_text()),
+        "fp2_mul_mxu": re.search(r"kFp2MulMxuBlocks = (\d+);", k56),
+        "fp2_sqr_mxu": re.search(r"kFp2SqrMxuBlocks = (\d+);", k56),
+        "mont_mul_mxu_fp": re.search(r"kMontMxuBlocks = (\d+);", k4),
+        "mont_mul_mxu_fr": re.search(r"kMontMxuBlocks = (\d+);", k4),
     }
     assert {k: int(m.group(1)) for k, m in blocks.items()} == MK._RESIDENT
-    # shared bytes: the tile's four staged operands (rows of 18 int64) and
-    # five padded limb planes of 32-bit words, and for K5 the 16-byte piece
-    # rows, one 32-column pass and the tables
-    tile = 4 * MK.TILE_ELEMS * 18 * 8 + 5 * 16 * (MK.TILE_ELEMS + 1) * 4
-    rows = 3 * MK.TILE_ELEMS
+    # roles: threads a tile over its elements
+    assert re.search(r"kFp2MulThreads = (\d+) \* kTileElems;", tile).group(1) == str(MK._ROLES["fp2_mul"])
+    assert re.search(r"kFp2SqrThreads = (\d+) \* kTileElems;", k56).group(1) == str(MK._ROLES["fp2_sqr_mxu"])
+    # shared bytes: the staged operands (rows of 18 int64 for Fp, 11 for
+    # Fr), the product and output limb planes of 32-bit words, and for the
+    # int8 kernels, 32-byte aligned, the 16-byte piece rows, one 32-column
+    # pass at a stride of rows + 4 and the 6,144-byte tables
+    e = MK.TILE_ELEMS
+
+    def conv(rows):
+        return 2 * 2 * rows * 16 + 32 * (rows + 4) * 4 + 6144
+
+    fp2_mul = 4 * e * 18 * 8 + 5 * 16 * (e + 1) * 4
     assert MK._SMEM == {
-        "fp2_mul": tile,
-        "fp2_mul_mxu": tile + 2 * 2 * rows * 16 + 32 * (rows + 4) * 4 + 2 * 2 * (32 + 64) * 16,
+        ("fp2_mul", e): fp2_mul,
+        ("fp2_mul_mxu", e): fp2_mul + conv(3 * e),
+        ("fp2_sqr_mxu", e): 2 * e * 18 * 8 + 2 * 16 * (e + 1) * 4 + conv(2 * e),
+        ("mont_mul_mxu_fp", 32): 2 * 32 * 18 * 8 + 16 * 33 * 4 + conv(32),
+        ("mont_mul_mxu_fp", 128): 2 * 128 * 18 * 8 + 16 * 129 * 4 + conv(128),
+        ("mont_mul_mxu_fr", 32): 7104 + conv(32),  # 2 x 32 x 11 x 8 + 11 x 33 x 4 = 7084, aligned
+        ("mont_mul_mxu_fr", 128): 28224 + conv(128),  # 22,528 + 5,676 = 28,204, aligned
     }
-    assert MK._SMEM == {"fp2_mul": 28992, "fp2_mul_mxu": 54080}
+    assert list(MK._SMEM.values()) == [28992, 54080, 32384, 24128, 76352, 19904, 59456]
 
 
 _C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
@@ -105,45 +162,50 @@ def test_ctypes_signatures_match_c_entry_points(source):
         assert argtypes == want, fn
 
 
-def test_tiled_wrapper_passes_geometry(monkeypatch):
-    """The wrapper hands a tiled kernel fp2_geometry's numbers after the
-    row count, and an untiled one none."""
+class _FakeTensor:
+    """What _launch reads of a CUDA tensor of `rows` rows of n limbs."""
+
+    def __init__(self, rows, n=16):
+        self.device = type("D", (), {"type": "cuda"})()
+        self.dtype = MK.limb.DTYPE
+        self.shape = (rows, n)
+
+    def numel(self):
+        return self.shape[0] * self.shape[1]
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 4096
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """_launch against a card of 114 SMs whose libraries record each call
+    (function name, arguments) instead of launching."""
     calls = []
-
-    class FakeFn:
-        def __init__(self, name):
-            self.name = name
-
-        def __call__(self, *args):
-            calls.append((self.name, args))
-            return 0
 
     class FakeLib:
         def __getattr__(self, name):
-            return FakeFn(name)
-
-    class FakeTensor:
-        def __init__(self, rows):
-            self.device = type("D", (), {"type": "cuda"})()
-            self.dtype = MK.limb.DTYPE
-            self.shape = (rows, 16)
-
-        def numel(self):
-            return self.shape[0] * 16
-
-        def is_contiguous(self):
-            return True
-
-        def data_ptr(self):
-            return 4096
+            return lambda *args: calls.append((name, args)) or 0
 
     monkeypatch.setattr(MK, "library", lambda source: FakeLib())
     monkeypatch.setattr(MK, "sm_count", lambda device: 114)
     monkeypatch.setattr(MK.torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
     monkeypatch.setattr(MK.torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 7})())
+    monkeypatch.setattr(MK.limb_mxu, "device_tables", lambda ctx, device: type("T", (), {"data_ptr": lambda self: 8192})())
     MK.reset_launches()
+    yield calls
+    MK.reset_launches()
+
+
+def test_tiled_wrapper_passes_geometry(fake_card):
+    """The wrapper hands a tiled kernel fp2_geometry's numbers after the
+    row count, and an untiled one none."""
+    calls = fake_card
     for kernel, fn, n in (("fp2_mul", "charon_fp2_mul", 6), ("fp2_sqr", "charon_fp2_sqr", 4)):
-        MK._launch("fp2.cu", fn, MK.limb.FP, kernel, [FakeTensor(24576)] * n)
+        MK._launch("fp2.cu", fn, MK.limb.FP, kernel, [_FakeTensor(24576)] * n)
     g = MK.fp2_geometry("fp2_mul", 24576, 114)
     (_, mul_args), (_, sqr_args) = calls
     assert mul_args[6:11] == (24576, g.elems, g.threads, g.grid, g.smem)
@@ -151,3 +213,25 @@ def test_tiled_wrapper_passes_geometry(monkeypatch):
     assert MK.ROWS["fp2_mul"] == {24576: 1} and MK.ROWS["fp2_sqr"] == {24576: 1}
     MK.reset_launches()
     assert MK.ROWS["fp2_mul"] == {} and MK.LAUNCHES["fp2_mul"] == 0
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32, 33, 384, 1024, 4096, 65536])
+def test_int8_wrapper_passes_geometry(fake_card, rows):
+    """K4 (Fp and Fr) gets the tables and mont_geometry's numbers after the
+    row count, K6 the tables and fp2_geometry's; each launch is counted
+    under its kernel and row count."""
+    calls = fake_card
+    MK._launch("mont_mxu.cu", "charon_mont_mul_mxu", MK.limb.FP, "mont_mul_mxu_fp", [_FakeTensor(rows)] * 3, tables=True)
+    MK._launch("mont_mxu.cu", "charon_mont_mul_mxu", MK.limb.FR, "mont_mul_mxu_fr", [_FakeTensor(rows, 11)] * 3, tables=True)
+    MK._launch("fp2_mxu.cu", "charon_fp2_sqr_mxu", MK.limb.FP, "fp2_sqr_mxu", [_FakeTensor(rows)] * 4, tables=True)
+    (fp_fn, fp_args), (fr_fn, fr_args), (sqr_fn, sqr_args) = calls
+    assert fp_fn == fr_fn == "charon_mont_mul_mxu" and sqr_fn == "charon_fp2_sqr_mxu"
+    for args, kernel, n_ptr, n in ((fp_args, "mont_mul_mxu_fp", 3, 16), (fr_args, "mont_mul_mxu_fr", 3, 11),
+                                   (sqr_args, "fp2_sqr_mxu", 4, 16)):
+        g = MK.geometry(kernel, rows, 114)
+        assert args[n_ptr] == 8192  # the tables
+        assert args[n_ptr + 1:n_ptr + 7] == (rows, g.elems, g.threads, g.grid, g.smem, n)
+        assert len(args) == len(MK._SOURCES["fp2_mxu.cu" if kernel == "fp2_sqr_mxu" else "mont_mxu.cu"][
+            "charon_fp2_sqr_mxu" if kernel == "fp2_sqr_mxu" else "charon_mont_mul_mxu"])
+        assert MK.ROWS[kernel] == {rows: 1} and MK.LAUNCHES[kernel] == 1
+    assert MK.geometry("mont_mul_fp", rows, 114) is None and MK.geometry("fp2_sqr", rows, 114) is None

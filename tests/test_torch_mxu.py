@@ -89,11 +89,16 @@ def test_piece_tables_recombine_to_constants_and_equal_reference(name):
         for i in range(1, n12):
             assert np.array_equal(T0[i, i:], T0[0, : T0.shape[1] - i])
         assert np.array_equal(T0, J0) and np.array_equal(T1, J1)
-    # the kernels' padded block holds the same tables, zeros elsewhere
+    # the kernels' padded block holds the same tables, zeros elsewhere, each
+    # as 16-deep column-major planes: [k step][column][depth]
     block = LM.kernel_tables_np(ctx)
     nbytes = LM.K_DEPTH * LM.NINV_COLS
-    nT0 = block[:nbytes].reshape(LM.K_DEPTH, LM.NINV_COLS)
-    pT1 = block[2 * nbytes + LM.K_DEPTH * LM.MOD_COLS:].reshape(LM.K_DEPTH, LM.MOD_COLS)
+
+    def unplane(b, cols):
+        return b.reshape(LM.K_DEPTH // 16, cols, 16).transpose(0, 2, 1).reshape(LM.K_DEPTH, cols)
+
+    nT0 = unplane(block[:nbytes], LM.NINV_COLS)
+    pT1 = unplane(block[2 * nbytes + LM.K_DEPTH * LM.MOD_COLS:], LM.MOD_COLS)
     assert np.array_equal(nT0[:n12, :n12], LM._ninv_toeplitz(ctx)[0])
     assert np.array_equal(pT1[:n12, : 2 * n12], LM._modulus_toeplitz(ctx)[1])
     assert block.size == 6144 and int(np.abs(block).sum()) == sum(
