@@ -19,9 +19,8 @@
 // while this one computes, and one Montgomery product a thread, so each
 // warp's 32 MMA rows are 32 independent products of one role and each of
 // the constant convolutions runs once a tile on every warp at once. K5 has
-// three roles (K2's Karatsuba products, 96 threads); K6 two, 64 threads:
-// role 0 computes c0 = (a0 + a1)(a0 - a1), forming its operands from the
-// staged a0 and a1, and role 1 computes a0 a1 and writes c1 = 2 a0 a1.
+// three roles (K2's Karatsuba products, 96 threads); K6 two, 64 threads
+// (K3's square, tile.cuh fp2_sqr_tiles).
 // Blocks are persistent, so the tables reach shared memory once a block,
 // as one straight copy that overlaps the first tile's a b (mont_mxu.cuh).
 
@@ -34,7 +33,6 @@ namespace charon {
 // 65,536 / (4 x 96) = 170. K6: six blocks of 64 threads cap them at 170.
 constexpr int kFp2MulMxuBlocks = 4;
 constexpr int kFp2SqrMxuBlocks = 6;
-constexpr int kFp2SqrThreads = 2 * kTileElems;
 
 struct Fp2MulMxuShared {
   Fp2MulTile mul;
@@ -42,7 +40,7 @@ struct Fp2MulMxuShared {
 };
 
 struct Fp2SqrMxuShared {
-  Tile<kFp2Limbs, kTileElems, 2, 2> tile;  // a0, a1 -> c0, c1
+  Fp2SqrTile tile;
   MxuConv<kFp2SqrThreads> conv;
 };
 
@@ -60,29 +58,12 @@ __global__ void __launch_bounds__(kFp2MulThreads, kFp2MulMxuBlocks)
 __global__ void __launch_bounds__(kFp2SqrThreads, kFp2SqrMxuBlocks)
     fp2_sqr_mxu_kernel(TilePtrs<2, 2> p, const int8_t* __restrict__ tables, int64_t rows,
                        Modulus m) {
-  constexpr int N = kFp2Limbs;
   extern __shared__ __align__(128) unsigned char smem[];
   Fp2SqrMxuShared& sm = *reinterpret_cast<Fp2SqrMxuShared*>(smem);
-  const int k = threadIdx.x / kTileElems, e = threadIdx.x % kTileElems;
-  tile_loop<kFp2SqrThreads>(
-      p, rows, sm.tile, [&] { fetch_tables(tables, sm.conv); },
-      [&](uint32_t (&x)[N], uint32_t (&y)[N]) {
-        read_row<N>(sm.tile.in[0], e, x);
-        read_row<N>(sm.tile.in[1], e, y);
-        if (k == 0) {  // (a0 + a1, a0 - a1)
-          uint32_t s[N];
-          add_mod<N>(x, y, s, m);
-          sub_mod<N>(x, y, y, m);
-#pragma unroll
-          for (int j = 0; j < N; ++j) x[j] = s[j];
-        }
-      },
-      [&](const uint32_t (&x)[N], const uint32_t (&y)[N], bool first) {
-        uint32_t r[N];
-        mont_mul_mxu<N>(x, y, r, m, sm.conv, first);
-        if (k == 1) add_mod<N>(r, r, r, m);
-        write_plane(sm.tile.out[k], e, r);
-      });
+  fp2_sqr_tiles(p, rows, m, sm.tile, [&] { fetch_tables(tables, sm.conv); },
+                [&](const uint32_t (&x)[kFp2Limbs], const uint32_t (&y)[kFp2Limbs],
+                    uint32_t (&r)[kFp2Limbs],
+                    bool first) { mont_mul_mxu<kFp2Limbs>(x, y, r, m, sm.conv, first); });
 }
 
 }  // namespace charon

@@ -56,7 +56,6 @@ constexpr int kModCols = 64;   // 12-bit columns of q * p, padded
 constexpr int kConvCols = 32;  // 12-bit columns a convolution pass: ninv, or half of mod
 constexpr int kNinvBytes = 2 * kKSteps * kNinvCols * 16;
 constexpr int kTableBytes = kNinvBytes + 2 * kKSteps * kModCols * 16;
-constexpr int kWarpRows = 32;
 
 // The product's shared memory for a block of Rows threads.
 template <int Rows>

@@ -1,9 +1,9 @@
 // Tiled batched field kernels: the staged tile, its fetch and store, and
-// the persistent tile loop, shared by K4 (mont_mxu.cu), K2 (fp2.cu) and
-// K5/K6 (fp2_mxu.cu).
+// the persistent tile loop, shared by every kernel: K1 (mont_mul.cu), K2
+// and K3 (fp2.cu), K4 (mont_mxu.cu), K5 and K6 (fp2_mxu.cu).
 //
-// A launch walks tiles of Elems elements (Fp or Fr elements for K4, Fp2
-// elements for K2/K5/K6), the tile's threads split into warp-uniform roles
+// A launch walks tiles of Elems elements (Fp or Fr elements for K1 and K4,
+// Fp2 elements for K2, K3, K5, K6), the tile's threads split into warp-uniform roles
 // of Elems threads each, one Montgomery product a thread. A block takes
 // tiles b, b + gridDim.x, b + 2 gridDim.x, ... (ops/mont_kernels.
 // mont_geometry and fp2_geometry set the grid to at most the card's
@@ -38,7 +38,8 @@
 namespace charon {
 
 constexpr int kFp2Limbs = 16;
-constexpr int kTileElems = 32;  // Fp2 elements a tile of K2, K5 and K6: one warp a role
+constexpr int kTileElems = 32;  // Fp2 elements a tile of K2, K3, K5 and K6: one warp a role
+constexpr int kWarpRows = 32;   // a warp's rows: K1's and K4's tile for launches up to that many
 
 // int64 words a staged row takes in shared memory
 template <int N>
@@ -281,6 +282,44 @@ __device__ __forceinline__ void fp2_mul_tiles(const TilePtrs<4, 2>& p, int64_t r
           }
           write_plane(t.tile.out[k], e, r);
         }
+      });
+}
+
+// ---------------------------------------------------------------------------
+// The fused Fp2 square on the tile (K3, K6): two operand tiles, two roles:
+// k = 0 forms (a0 + a1, a0 - a1) from the staged a0, a1 and computes c0 =
+// (a0 + a1)(a0 - a1); k = 1 computes a0 a1 and writes c1 = 2 a0 a1.
+// ---------------------------------------------------------------------------
+
+constexpr int kFp2SqrThreads = 2 * kTileElems;
+
+using Fp2SqrTile = Tile<kFp2Limbs, kTileElems, 2, 2>;  // a0, a1 -> c0, c1
+
+// `product(x, y, r, first)` as in fp2_mul_tiles.
+template <class Prologue, class Product>
+__device__ __forceinline__ void fp2_sqr_tiles(const TilePtrs<2, 2>& p, int64_t rows,
+                                              const Modulus& m, Fp2SqrTile& t,
+                                              Prologue&& prologue, Product&& product) {
+  constexpr int N = kFp2Limbs;
+  const int k = threadIdx.x / kTileElems, e = threadIdx.x % kTileElems;
+  tile_loop<kFp2SqrThreads>(
+      p, rows, t, prologue,
+      [&](uint32_t (&x)[N], uint32_t (&y)[N]) {
+        read_row<N>(t.in[0], e, x);
+        read_row<N>(t.in[1], e, y);
+        if (k == 0) {
+          uint32_t s[N];
+          add_mod<N>(x, y, s, m);
+          sub_mod<N>(x, y, y, m);
+#pragma unroll
+          for (int j = 0; j < N; ++j) x[j] = s[j];
+        }
+      },
+      [&](const uint32_t (&x)[N], const uint32_t (&y)[N], bool first) {
+        uint32_t r[N];
+        product(x, y, r, first);
+        if (k == 1) add_mod<N>(r, r, r, m);
+        write_plane(t.out[k], e, r);
       });
 }
 

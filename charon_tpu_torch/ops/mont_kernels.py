@@ -15,12 +15,14 @@ K4-K6 run the two constant convolutions of every Montgomery product on the
 int8 tensor cores (ops/limb_mxu.py); limb.set_mxu, owned by
 core/autotune.KernelConfig, routes the products to them.
 
-K4, K2, K5 and K6 are tiled (csrc/tile.cuh): operands fetched into shared
+Every kernel is tiled (csrc/tile.cuh): operands fetched into shared
 memory a tile at a time, one Montgomery product a thread, persistent
-blocks. mont_geometry (K4) and fp2_geometry (K2, K5, K6) compute their
-launch geometry from the row count and the card's SM count, and the
-wrapper passes it to the C entry point, which checks it. K4, K5 and K6
-share one int8 tensor-core product (csrc/mont_mxu.cuh).
+blocks. mont_geometry (K1, K4) and fp2_geometry (K2, K3, K5, K6) compute
+the launch geometry from the row count and the card's SM count, and the
+wrapper passes it to the C entry point, which checks it. K1-K3 share one
+CUDA-core product for Fp on 32-bit words (csrc/mont_field.cuh), K4-K6 one
+int8 tensor-core product (csrc/mont_mxu.cuh); K3 and K6 one two-role
+square, K2 and K5 one three-role multiply (csrc/tile.cuh).
 
 Beside each wrapper is its plain PyTorch version: the int64 limb algorithm
 of limb.mont_mul (K4: limb_mxu.mont_mul_mxu) and the Fp2 formulas. A
@@ -62,31 +64,34 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# After the operand pointers: rows, n_limbs, modulus limbs (host), pinv,
-# stream. K4-K6 take the int8 piece tables (device) between the two; the
-# tiled K2, K4, K5 and K6 take their geometry (elements a tile, threads,
-# grid, dynamic shared bytes) after rows.
-_TAIL = [_I64, _INT, _PTR, _I64, _PTR]
-_TILED_TAIL = [_I64] + [_INT] * 4 + _TAIL[1:]
+# After the operand pointers (and, for K4-K6, the int8 piece tables on the
+# device): rows, the geometry (elements a tile, threads, grid, dynamic
+# shared bytes), n_limbs, modulus limbs (host), pinv, stream.
+_TAIL = [_I64] + [_INT] * 4 + [_INT, _PTR, _I64, _PTR]
 # source file -> {exported kernel function: its C signature}
 _SOURCES = {
     "mont_mul.cu": {"charon_mont_mul": [_PTR] * 3 + _TAIL},
-    "fp2.cu": {"charon_fp2_mul": [_PTR] * 6 + _TILED_TAIL, "charon_fp2_sqr": [_PTR] * 4 + _TAIL},
-    "mont_mxu.cu": {"charon_mont_mul_mxu": [_PTR] * 4 + _TILED_TAIL},
-    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TILED_TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TILED_TAIL},
+    "fp2.cu": {"charon_fp2_mul": [_PTR] * 6 + _TAIL, "charon_fp2_sqr": [_PTR] * 4 + _TAIL},
+    "mont_mxu.cu": {"charon_mont_mul_mxu": [_PTR] * 4 + _TAIL},
+    "fp2_mxu.cu": {"charon_fp2_mul_mxu": [_PTR] * 7 + _TAIL, "charon_fp2_sqr_mxu": [_PTR] * 5 + _TAIL},
 }
 
-# The tiled kernels' constants, mirrored from csrc: Fp2 elements a tile of
-# K2/K5/K6 (tile.cuh kTileElems) and their roles (threads a tile over
-# TILE_ELEMS); K4's tile, a warp's rows for a launch of at most a warp's
-# rows (mont_mxu.cuh kWarpRows), else MONT_TILE_ROWS (mont_mxu.cu
-# kMontMxuThreads); blocks resident on an SM (the second argument of each
-# kernel's __launch_bounds__).
+# The kernels' constants, mirrored from csrc: Fp2 elements a tile of K2,
+# K3, K5, K6 (tile.cuh kTileElems) and their roles (threads a tile over
+# TILE_ELEMS); K1's and K4's tile, a warp's rows for a launch of at most a
+# warp's rows (tile.cuh kWarpRows), else MONT_TILE_ROWS (mont_mul.cu
+# kMontTileRows, mont_mxu.cu kMontMxuThreads); blocks resident on an SM
+# (the second argument of each kernel's __launch_bounds__).
 TILE_ELEMS = 32
 WARP_ROWS = 32
-MONT_TILE_ROWS = 128
-_ROLES = {"fp2_mul": 3, "fp2_mul_mxu": 3, "fp2_sqr_mxu": 2}
-_RESIDENT = {"fp2_mul": 4, "fp2_mul_mxu": 4, "fp2_sqr_mxu": 6, "mont_mul_mxu_fp": 3, "mont_mul_mxu_fr": 3}
+MONT_TILE_ROWS = {"mont_mul_fp": 32, "mont_mul_fr": 32, "mont_mul_mxu_fp": 128, "mont_mul_mxu_fr": 128}
+# K1 takes a launch of at most a warp's rows straight into registers
+_UNSTAGED = ("mont_mul_fp", "mont_mul_fr")
+_ROLES = {"fp2_mul": 3, "fp2_sqr": 2, "fp2_mul_mxu": 3, "fp2_sqr_mxu": 2}
+_RESIDENT = {
+    "mont_mul_fp": 8, "mont_mul_fr": 8, "fp2_mul": 4, "fp2_sqr": 8,
+    "mont_mul_mxu_fp": 3, "mont_mul_mxu_fr": 3, "fp2_mul_mxu": 4, "fp2_sqr_mxu": 6,
+}
 
 
 def _tile_smem(n: int, elems: int, ins: int, outs: int, prods: int = 0, conv: int = 0) -> int:
@@ -105,11 +110,14 @@ def _tile_smem(n: int, elems: int, ins: int, outs: int, prods: int = 0, conv: in
 
 # (kernel, elements a tile) -> dynamic shared bytes a block
 _SMEM = {
+    **{(f"mont_mul_{name}", MONT_TILE_ROWS[f"mont_mul_{name}"]): _tile_smem(n, MONT_TILE_ROWS[f"mont_mul_{name}"], 2, 1)
+       for name, n in (("fp", 16), ("fr", 11))},
     ("fp2_mul", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 4, 2, prods=3),
+    ("fp2_sqr", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 2, 2),
     ("fp2_mul_mxu", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 4, 2, prods=3, conv=3 * TILE_ELEMS),
     ("fp2_sqr_mxu", TILE_ELEMS): _tile_smem(16, TILE_ELEMS, 2, 2, conv=2 * TILE_ELEMS),
     **{(f"mont_mul_mxu_{name}", e): _tile_smem(n, e, 2, 1, conv=e)
-       for name, n in (("fp", 16), ("fr", 11)) for e in (WARP_ROWS, MONT_TILE_ROWS)},
+       for name, n in (("fp", 16), ("fr", 11)) for e in (WARP_ROWS, MONT_TILE_ROWS[f"mont_mul_mxu_{name}"])},
 }
 
 
@@ -126,55 +134,59 @@ class Geometry:
 
 
 def fp2_geometry(kernel: str, rows: int, sm_count: int) -> Geometry:
-    """The launch of tiled Fp2 kernel `kernel` ("fp2_mul", "fp2_mul_mxu" or
-    "fp2_sqr_mxu") over rows > 0 on a card of sm_count SMs: one block a
-    tile up to the blocks the card holds at once, then that many
-    persistent blocks, so a large launch runs in whole waves and loads its
-    tables once a block."""
+    """The launch of Fp2 kernel `kernel` (K2, K3, K5, K6: "fp2_mul",
+    "fp2_sqr", "fp2_mul_mxu", "fp2_sqr_mxu") over rows > 0 on a card of
+    sm_count SMs: one block a tile up to the blocks the card holds at once,
+    then that many persistent blocks, so a large launch runs in whole waves
+    and the int8 kernels load their tables once a block."""
     tiles = -(-rows // TILE_ELEMS)
     grid = min(tiles, sm_count * _RESIDENT[kernel])
     return Geometry(rows, TILE_ELEMS, _ROLES[kernel] * TILE_ELEMS, grid, _SMEM[kernel, TILE_ELEMS])
 
 
 def mont_geometry(kernel: str, rows: int, sm_count: int) -> Geometry:
-    """The launch of K4 (`kernel` "mont_mul_mxu_fp" or "mont_mul_mxu_fr")
-    over rows > 0: one one-warp block for at most a warp's rows, so a
-    launch of 1-32 rows runs no dead warps through the table copy; above
-    that, tiles of MONT_TILE_ROWS rows, one block a tile up to the blocks
-    the card holds at once, then that many persistent blocks."""
-    elems = WARP_ROWS if rows <= WARP_ROWS else MONT_TILE_ROWS
+    """The launch of K1 or K4 (`kernel` "mont_mul_fp", "mont_mul_fr",
+    "mont_mul_mxu_fp" or "mont_mul_mxu_fr") over rows > 0: one one-warp
+    block for at most a warp's rows, so a launch of 1-32 rows runs no dead
+    warps (through K4's table copy; K1 stages nothing there and takes no
+    shared memory); above that, tiles of the kernel's MONT_TILE_ROWS rows
+    (K1: a warp's, K4: 128), one block a tile up to the blocks the card
+    holds at once, then that many persistent blocks."""
+    if rows <= WARP_ROWS and kernel in _UNSTAGED:
+        return Geometry(rows, WARP_ROWS, WARP_ROWS, 1, 0)
+    elems = WARP_ROWS if rows <= WARP_ROWS else MONT_TILE_ROWS[kernel]
     tiles = -(-rows // elems)
     grid = min(tiles, sm_count * _RESIDENT[kernel])
     return Geometry(rows, elems, elems, grid, _SMEM[kernel, elems])
 
 
-def geometry(kernel: str, rows: int, sm_count: int) -> Geometry | None:
-    """The tiled launch of `kernel` (a LAUNCHES name), or None for an
-    untiled kernel (K1, K3)."""
+def geometry(kernel: str, rows: int, sm_count: int) -> Geometry:
+    """The launch of `kernel` (a LAUNCHES name)."""
     if kernel in _ROLES:
         return fp2_geometry(kernel, rows, sm_count)
-    if kernel in _RESIDENT:
-        return mont_geometry(kernel, rows, sm_count)
-    return None
+    return mont_geometry(kernel, rows, sm_count)
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
-# Launches per kernel since the last reset_launches(), and per kernel the
-# launches at each row count ({rows: launches}).
+# Launches per kernel since the last reset_launches(), per kernel the
+# launches at each row count ({rows: launches}), and the operands _aligned
+# copied because they started off a 16-byte word.
 LAUNCHES = {
     "mont_mul_fp": 0, "mont_mul_fr": 0, "fp2_mul": 0, "fp2_sqr": 0,
     "mont_mul_mxu_fp": 0, "mont_mul_mxu_fr": 0, "fp2_mul_mxu": 0, "fp2_sqr_mxu": 0,
 }
 ROWS: dict[str, dict[int, int]] = {name: {} for name in LAUNCHES}
+ALIGN_COPIES = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         ROWS[name].clear()
+        ALIGN_COPIES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -263,9 +275,9 @@ def library(source: str) -> ctypes.CDLL:
 
 def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: bool = False) -> None:
     """Check the CUDA operands (inputs then outputs, one shape), launch on
-    the current stream, and raise on a refused launch. `tables` passes the
-    int8 piece tables of ctx on the operands' device (K4-K6); a tiled
-    kernel (K2, K4-K6) gets its geometry."""
+    the current stream with the kernel's geometry, and raise on a refused
+    launch. `tables` passes the int8 piece tables of ctx on the operands'
+    device (K4-K6)."""
     ref = tensors[0]
     for t in tensors:
         if t.device != ref.device or t.device.type != "cuda":
@@ -281,14 +293,11 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
         return
     lib = library(source)
     extra = (limb_mxu.device_tables(ctx, ref.device).data_ptr(),) if tables else ()
-    geom = ()
-    if kernel in _RESIDENT:
-        g = geometry(kernel, rows, sm_count(ref.device))
-        geom = (g.elems, g.threads, g.grid, g.smem)
+    g = geometry(kernel, rows, sm_count(ref.device))
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         rc = getattr(lib, fn)(
-            *(t.data_ptr() for t in tensors), *extra, rows, *geom, ctx.n_limbs,
+            *(t.data_ptr() for t in tensors), *extra, rows, g.elems, g.threads, g.grid, g.smem, ctx.n_limbs,
             ctx.limbs.ctypes.data, ctx.pinv, stream,
         )
     if rc != 0:
@@ -299,12 +308,16 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
 
 
 def _aligned(kernel: str, tensors):
-    """Contiguous operands; for a tiled kernel, whose tiles move in 16-byte
-    words, a copy of any view that starts between them."""
-    tensors = [x.contiguous() for x in tensors]
-    if kernel in _RESIDENT:
-        tensors = [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
-    return tensors
+    """Contiguous operands, and a copy of any view that starts off a 16-byte
+    word (the tiles move in 16-byte words), counted in ALIGN_COPIES."""
+    out = []
+    for x in tensors:
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+            ALIGN_COPIES[kernel] += 1
+        out.append(x)
+    return out
 
 
 def _operands(tensors):

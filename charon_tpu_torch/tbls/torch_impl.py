@@ -148,15 +148,23 @@ class TorchImpl(Implementation):
     def _sig_points(self, sigs: Sequence[bytes], what: str) -> list:
         """Decompress signatures on the host; subgroup-check them on the
         device when verify_inputs is set."""
+        pts = self._decode_sigs(sigs, what)
+        self._subgroup_check(pts, what)
+        return pts
+
+    @staticmethod
+    def _decode_sigs(sigs: Sequence[bytes], what: str) -> list:
         pts = []
         for sig in sigs:
             pt = sig_to_point(sig, subgroup_check=False)
             if pt is None:
                 raise TblsError(f"infinite {what}")
             pts.append(pt)
-        if self.verify_inputs and not all(self.engine.subgroup_check_g2_batch(pts)):
-            raise TblsError(f"{what} not in G2 subgroup")
         return pts
+
+    def _subgroup_check(self, pts: list, what: str) -> None:
+        if self.verify_inputs and pts and not all(self.engine.subgroup_check_g2_batch(pts)):
+            raise TblsError(f"{what} not in G2 subgroup")
 
     # -- verification -----------------------------------------------------
 
@@ -235,24 +243,32 @@ class TorchImpl(Implementation):
         return self.threshold_aggregate_batch([partials])[0]
 
     def threshold_aggregate_batch(self, batch) -> list[bytes]:
+        """The reference's checks in its order, validator by validator: an
+        empty partial set, its indices, the host decode of its signatures,
+        their subgroup check; the thresholds after every validator. One
+        device subgroup check covers every validator decoded before the
+        first host error, so its failure outranks that error, as it would
+        have come first."""
         if not batch:
             return []
-        flat = []
+        point_batch, host_error = [], None
         for partials in batch:
-            if not partials:
-                raise TblsError("no partial signatures")
-            if any(i <= 0 for i in partials):
-                raise TblsError("share indices are 1-based")
-            flat.extend(partials.items())
-        t = len(batch[0])
-        if any(len(p) != t for p in batch):
+            try:
+                if not partials:
+                    raise TblsError("no partial signatures")
+                if any(i <= 0 for i in partials):
+                    raise TblsError("share indices are 1-based")
+                pts = self._decode_sigs(list(partials.values()), "partial signature")
+            except TblsError as e:
+                host_error = e
+                break
+            point_batch.append(dict(zip(partials, pts)))
+        self._subgroup_check([pt for p in point_batch for pt in p.values()], "partial signature")
+        if host_error is not None:
+            raise host_error
+        t = len(point_batch[0])
+        if any(len(p) != t for p in point_batch):
             raise TblsError("inconsistent thresholds in batch")
-        # one device subgroup check over every partial of the batch
-        pts = self._sig_points([s for _, s in flat], "partial signature")
-        point_batch = [
-            {i: pt for (i, _), pt in zip(flat[v * t : (v + 1) * t], pts[v * t : (v + 1) * t])}
-            for v in range(len(batch))
-        ]
         out = self.engine.threshold_aggregate_batch(point_batch)
         return [g1g2.g2_to_bytes(pt) for pt in out]
 

@@ -13,12 +13,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      K4 Fr, K5, K6) against its plain PyTorch version on the same CUDA
      tensors at 8192, 65533 and 65536 rows, on seeded reduced inputs plus
      edge values — exactly equal — and K4-K6 against K1-K3 on the same
-     operands; the tiled K2, K4, K5 and K6 also at the edges of their
+     operands; every kernel (all are tiled) also at the edges of its
      tiles and waves (1, 2, 3, 31, 32, 33, a large launch's tile less one,
      the tile and one more, an odd count above one wave of resident
-     blocks); each kernel's time (alone: 200
-     queued launches of its C entry point; through its wrapper; plain)
-     beside its bound;
+     blocks); each kernel's time (alone: 200 queued launches of its C
+     entry point; through its wrapper; plain) beside its bound;
   4. the host setup of the duty (keys, 4-of-7 splits, partials), then the
      startup tuner on the card: autotune.resolve("force") over the
      mxu_mont axis (K1-K3 vs K4-K6) at the duty's lane count, its timings,
@@ -28,8 +27,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      TorchImpl (verify 4096 partials by grouped RLC, a forged lane found by
      the per-lane re-check, Lagrange recombination of 1024 group
      signatures checked against host recombination, verification of the
-     group signatures), with each stage's wall time and each kernel's
-     launches — K4 Fp, K4 Fr, K5 and K6 must launch, K1-K3 never;
+     group signatures), with each stage's wall time, each kernel's
+     launches and the operands copied onto 16-byte words before a launch
+     — K4 Fp, K4 Fr, K5 and K6 must launch, K1-K3 never;
   6. the default configuration's duty (KernelConfig()) on the same
      validators — K1-K3 must launch, K4-K6 never;
   7. a torch.profiler trace of two main-path loop bodies under each
@@ -67,7 +67,9 @@ INT8_TC_OPS_PER_S = 1979e12
 
 
 def _cios(n: int) -> int:
-    """Limb multiply-adds of K1's CIOS product: a b, q p, and q."""
+    """Multiply-adds of a CIOS product over n limbs or words: a b, q p,
+    and q. K1-K3 take it over Fp's 12 32-bit words, K1 over Fr's 11
+    24-bit limbs."""
     return 2 * n * n + n
 
 
@@ -81,10 +83,10 @@ def _tc(n: int) -> int:
 # multiply-adds per element on the CUDA cores, int8 multiply-adds per
 # element on the tensor cores)
 KERNELS = {
-    "mont_mul_fp": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, _cios(16), 0),
+    "mont_mul_fp": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, _cios(12), 0),
     "mont_mul_fr": ("charon_tpu/ops/pallas_mont.py:482", "mont_mul.cu", "charon_mont_mul", 2, 1, _cios(11), 0),
-    "fp2_mul": ("charon_tpu/ops/pallas_mont.py:466", "fp2.cu", "charon_fp2_mul", 4, 2, 3 * _cios(16), 0),
-    "fp2_sqr": ("charon_tpu/ops/pallas_mont.py:475", "fp2.cu", "charon_fp2_sqr", 2, 2, 2 * _cios(16), 0),
+    "fp2_mul": ("charon_tpu/ops/pallas_mont.py:466", "fp2.cu", "charon_fp2_mul", 4, 2, 3 * _cios(12), 0),
+    "fp2_sqr": ("charon_tpu/ops/pallas_mont.py:475", "fp2.cu", "charon_fp2_sqr", 2, 2, 2 * _cios(12), 0),
     "mont_mul_mxu_fp": ("charon_tpu/ops/pallas_mont.py:264", "mont_mxu.cu", "charon_mont_mul_mxu", 2, 1, 16 * 16, _tc(16)),
     "mont_mul_mxu_fr": ("charon_tpu/ops/pallas_mont.py:264", "mont_mxu.cu", "charon_mont_mul_mxu", 2, 1, 11 * 11, _tc(11)),
     "fp2_mul_mxu": ("charon_tpu/ops/pallas_mont.py:289", "fp2_mxu.cu", "charon_fp2_mul_mxu", 4, 2, 3 * 16 * 16, 3 * _tc(16)),
@@ -92,7 +94,6 @@ KERNELS = {
 }
 INT8_KERNELS = tuple(k for k in KERNELS if "_mxu" in k)
 DEFAULT_KERNELS = tuple(k for k in KERNELS if "_mxu" not in k)
-TILED_KERNELS = ("fp2_mul", "fp2_mul_mxu", "mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_sqr_mxu")
 CHECK_ROWS = (8192, 65533, 65536)
 TIMED_ROWS = 65536
 DUTY_SHAPES = 4  # row counts a kernel is timed at beyond TIMED_ROWS
@@ -180,8 +181,8 @@ def _time_ms(fn, iters: int, queued: bool = False) -> float:
 
 def _raw_launcher(name, ctx, ops):
     """A closure that launches the kernel alone — the C entry point with
-    fixed pointers and, for the tiled kernels, the wrapper's geometry — so
-    the timed loop holds no wrapper overhead."""
+    fixed pointers and the wrapper's geometry — so the timed loop holds no
+    wrapper overhead."""
     import torch
     from charon_tpu_torch.ops import limb_mxu
     from charon_tpu_torch.ops import mont_kernels as MK
@@ -193,10 +194,8 @@ def _raw_launcher(name, ctx, ops):
     if name in INT8_KERNELS:
         ptrs.append(limb_mxu.device_tables(ctx, ops[0].device).data_ptr())
     rows = ops[0].numel() // ctx.n_limbs
-    geom = ()
-    if name in TILED_KERNELS:
-        g = MK.geometry(name, rows, MK.sm_count(ops[0].device))
-        geom = (g.elems, g.threads, g.grid, g.smem)
+    g = MK.geometry(name, rows, MK.sm_count(ops[0].device))
+    geom = (g.elems, g.threads, g.grid, g.smem)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
@@ -262,9 +261,9 @@ def count_imma() -> None:
 
 
 def edge_rows(name: str) -> tuple:
-    """Row counts at the edges of a tiled kernel's tiles and waves: a
-    warp's rows (K4's one-warp launches), a large launch's tile (K4: 128
-    rows; K2, K5, K6: 32), and one wave of resident blocks."""
+    """Row counts at the edges of a kernel's tiles and waves: a warp's rows
+    (K1's and K4's one-warp launches), a large launch's tile (K4: 128
+    rows; the others: 32), and one wave of resident blocks."""
     import torch
     from charon_tpu_torch.ops import mont_kernels as MK
 
@@ -275,16 +274,15 @@ def edge_rows(name: str) -> tuple:
 
 
 def check_kernels(seed: int) -> dict:
-    """Each kernel == its plain version at main-path row counts, and the
-    tiled kernels also at their tile edges (K4-K6 == K1-K3 on the same
-    operands); times."""
+    """Each kernel == its plain version at main-path row counts and at its
+    tile edges (K4-K6 == K1-K3 on the same operands); times."""
     import torch
     from charon_tpu_torch.ops import mont_kernels as MK
 
     results = {}
     for name in KERNELS:
         worst = 0
-        rows_checked = CHECK_ROWS + (edge_rows(name) if name in TILED_KERNELS else ())
+        rows_checked = CHECK_ROWS + edge_rows(name)
         for rows in rows_checked:
             ctx, ops = _operands(name, rows, seed + rows, "cuda")
             got = _run(name, ctx, ops, plain=False)
@@ -479,6 +477,7 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
         raise AssertionError(f"group signatures: {got.count(False)} False")
     launches = dict(MK.LAUNCHES)
     rows = {name: dict(counts) for name, counts in MK.ROWS.items()}
+    copies = {name: MK.ALIGN_COPIES[name] for name in launched}
     timings["duty_total"] = sum(timings.values())
 
     sample = random.Random(seed + 1).sample(range(n_validators), min(16, n_validators))
@@ -488,6 +487,7 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
             raise AssertionError(f"validator {v}: group signature differs from host recombination")
     log(f"group signatures of {len(sample)} sampled validators equal host recombination")
     log(f"launches over the duty {label}:", json.dumps(launches))
+    log(f"operands copied onto 16-byte words before a launch, duty {label}:", json.dumps(copies))
     for name in launched:
         top = sorted(rows[name].items(), key=lambda kv: (-kv[1], -kv[0]))
         covered = sum(n for _, n in top[:DUTY_SHAPES]) / launches[name]

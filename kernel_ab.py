@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Time the tiled kernels of two checkouts on one card.
+"""Time the kernels of two checkouts on one card.
 
     python3 kernel_ab.py --base DIR [--kernels K,...] [--rows 65536,...]
 
 DIR is another checkout of the repository (for example an earlier commit
 unpacked with `git archive`). The script builds, from DIR's
-charon_tpu_torch/csrc and from this tree's with nvcc, K2 (`charon_fp2_mul`,
-csrc/fp2.cu), K5 and K6 (`charon_fp2_mul_mxu`, `charon_fp2_sqr_mxu`,
-csrc/fp2_mxu.cu) and K4 over Fp and Fr (`charon_mont_mul_mxu`,
-csrc/mont_mxu.cu), holds both versions against this tree's plain version
+charon_tpu_torch/csrc and from this tree's with nvcc, K1 over Fp and Fr
+(`charon_mont_mul`, csrc/mont_mul.cu), K2 and K3 (`charon_fp2_mul`,
+`charon_fp2_sqr`, csrc/fp2.cu), K4 over Fp and Fr (`charon_mont_mul_mxu`,
+csrc/mont_mxu.cu), K5 and K6 (`charon_fp2_mul_mxu`, `charon_fp2_sqr_mxu`,
+csrc/fp2_mxu.cu), holds both versions against this tree's plain version
 on the same operands (exactly equal), and times them in turns (base, this,
 this, base) with chip_smoke's timer (CUDA events over 200 queued launches
 of the C entry point alone). By default each kernel is timed at 65,536
 rows and at the four row counts its duty launches it at most often
-(chip_smoke.py's rows-per-launch map; K4 Fr has two); --rows replaces
-those for every kernel. Each version's C entry point is called by its own
-parameter names, so a base whose kernels take no launch geometry works as
-well, and gets the int8 table block from its own ops/limb_mxu.py, in the
-layout its kernels read. Prints the card, one line per (kernel, rows),
-then one JSON object.
+(chip_smoke.py's rows-per-launch map; K1 Fr and K4 Fr have two); --rows
+replaces those for every kernel. Each version's C entry point is called
+by its own parameter names, with the launch geometry of its own
+ops/mont_kernels.py (none where that gives none: an untiled K1 or K3 of
+an earlier tree takes no geometry) and the int8 table block of its own
+ops/limb_mxu.py, in the layout its kernels read. Prints the card, one line
+per (kernel, rows), then one JSON object.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ import chip_smoke as cs
 
 # kernel -> (source, C function, the duty's most frequent row counts)
 KERNELS = {
+    "mont_mul_fp": ("mont_mul.cu", "charon_mont_mul", (1, 384, 8, 1024)),
+    "mont_mul_fr": ("mont_mul.cu", "charon_mont_mul", (4096, 1024)),
     "fp2_mul": ("fp2.cu", "charon_fp2_mul", (48, 24576, 6144, 384)),
+    "fp2_sqr": ("fp2.cu", "charon_fp2_sqr", (9, 2048, 8192, 18)),
     "fp2_mul_mxu": ("fp2_mxu.cu", "charon_fp2_mul_mxu", (48, 24576, 6144, 384)),
     "mont_mul_mxu_fp": ("mont_mxu.cu", "charon_mont_mul_mxu", (1, 384, 8, 1024)),
     "mont_mul_mxu_fr": ("mont_mxu.cu", "charon_mont_mul_mxu", (4096, 1024)),
@@ -76,24 +81,24 @@ def build(csrc: Path, out_dir: Path, sources) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def limb_mxu_of(root: Path, tag: str):
-    """The ops/limb_mxu.py module of the checkout at `root`, loaded under
-    its own name (it imports only this tree's limb module, whose interface
-    it shares)."""
+def ops_module_of(root: Path, module: str, tag: str):
+    """The ops/<module>.py of the checkout at `root`, loaded under its own
+    name (limb_mxu and mont_kernels import only this tree's limb and
+    limb_mxu modules, whose interfaces they share)."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(f"_limb_mxu_{tag}", root / "charon_tpu_torch" / "ops" / "limb_mxu.py")
+    spec = importlib.util.spec_from_file_location(f"_{module}_{tag}", root / "charon_tpu_torch" / "ops" / f"{module}.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # a dataclass looks its module up while it is made
     spec.loader.exec_module(mod)
     return mod
 
 
-def launcher(lib, csrc: Path, limb_mxu, name: str, ctx, ops, outs):
+def launcher(lib, csrc: Path, limb_mxu, mont_kernels, name: str, ctx, ops, outs):
     """A closure launching `name` from `lib` on fixed operands, its
-    arguments taken by the C parameter names, its tables from the
-    version's own `limb_mxu`."""
+    arguments taken by the C parameter names, its geometry from the
+    version's own `mont_kernels`, its tables from its own `limb_mxu`."""
     import torch
-    from charon_tpu_torch.ops import mont_kernels as MK
 
     source, fn_name, _ = KERNELS[name]
     params = c_params(csrc / source, fn_name)
@@ -101,13 +106,14 @@ def launcher(lib, csrc: Path, limb_mxu, name: str, ctx, ops, outs):
     fn.argtypes = [ctypes.c_void_p if "*" in t else _TYPES[t.removeprefix("const ")] for t, _ in params]
     fn.restype = ctypes.c_int
     rows = ops[0].shape[0]
-    g = MK.geometry(name, rows, MK.sm_count(ops[0].device))
+    g = mont_kernels.geometry(name, rows, mont_kernels.sm_count(ops[0].device))
+    geom = {} if g is None else {"elems": g.elems, "threads": g.threads, "grid": g.grid, "smem": g.smem}
     names = (("a", "b"), ("out",)) if name.startswith("mont_mul") else (("a0", "a1", "b0", "b1"), ("c0", "c1"))
     value = {
         **{k: t.data_ptr() for k, t in zip(names[0], ops)},
         **{k: t.data_ptr() for k, t in zip(names[1], outs)},
         "tables": limb_mxu.device_tables(ctx, ops[0].device).data_ptr(),
-        "rows": rows, "elems": g.elems, "threads": g.threads, "grid": g.grid, "smem": g.smem,
+        "rows": rows, **geom,
         "n_limbs": ctx.n_limbs, "mod_limbs": ctx.limbs.ctypes.data, "pinv": ctx.pinv,
         "stream": torch.cuda.current_stream().cuda_stream,
     }
@@ -142,7 +148,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     roots = {"base": args.base.resolve(), "this": MK.CSRC.parent.parent}
     versions = {v: root / "charon_tpu_torch" / "csrc" for v, root in roots.items()}
-    tables = {v: limb_mxu_of(root, v) for v, root in roots.items()}
+    tables = {v: ops_module_of(root, "limb_mxu", v) for v, root in roots.items()}
+    geometry = {v: ops_module_of(root, "mont_kernels", v) for v, root in roots.items()}
     sources = sorted({KERNELS[n][0] for n in names})
     libs = {v: build(csrc, MK.BUILD_DIR / "ab" / v, sources) for v, csrc in versions.items()}
     results = []
@@ -157,7 +164,7 @@ def main(argv=None) -> int:
             runs = {}
             for v, csrc in versions.items():
                 outs = [torch.empty_like(ops[0]) for _ in want]
-                launch = launcher(libs[v][source], csrc, tables[v], name, ctx, ops, outs)
+                launch = launcher(libs[v][source], csrc, tables[v], geometry[v], name, ctx, ops, outs)
                 launch()
                 torch.cuda.synchronize()
                 if not all(torch.equal(o, w) for o, w in zip(outs, want)):

@@ -147,3 +147,105 @@ def test_aggregate_and_verify_aggregate(cluster, trusting):
     agg = trusting.aggregate(sigs)
     assert agg == py.aggregate(sigs)
     trusting.verify_aggregate(pks, MSG, agg)
+
+
+# -- error order: the reference's host-decode rung, TPUImpl(decode_mode="python") --
+
+INFINITE = bytes([0xC0]) + bytes(95)
+
+
+def _off_subgroup_sig():
+    """An on-curve G2 point outside the prime-order subgroup (no cofactor
+    clearing), found by incrementing x, as a compressed signature."""
+    from charon_tpu.crypto import fields as F
+    from charon_tpu.crypto import g1g2 as G
+
+    x0 = 1
+    while (y := F.fp2_sqrt(F.fp2_add(F.fp2_mul(F.fp2_sqr((x0, 1)), (x0, 1)), (4, 4)))) is None:
+        x0 += 1
+    pt = ((x0, 1), y)
+    assert G.g2_is_on_curve(pt) and not G.g2_in_subgroup(pt)
+    return G.g2_to_bytes(pt)
+
+
+def _bad_batch(vals, case):
+    """A batch of the three validators' partials with the faults of `case`;
+    each validator keeps T partials unless the case says otherwise."""
+    p = [{i: v["partials"][i] for i in list(v["partials"])[:T]} for v in vals]
+    first = [dict(q) for q in p]
+    if case == "infinite_then_index_0":  # the reference raises at validator 0's decode
+        first[0][1] = INFINITE
+        first[1] = {0: p[1][1], **p[1]}
+    elif case == "index_0_then_empty":
+        first[0] = {0: p[0][1], 2: p[0][2], 3: p[0][3]}
+        first[1] = {}
+    elif case == "empty_then_index_0":
+        first[1] = {}
+        first[2] = {0: p[2][1], **p[2]}
+    elif case == "thresholds_then_infinite":  # decode outranks the thresholds
+        del first[1][3]
+        first[2][2] = INFINITE
+    elif case == "inconsistent_thresholds":
+        first[0][4] = vals[0]["partials"][4]
+    elif case == "truncated_then_index_0":
+        first[0][2] = p[0][2][:-1]
+        first[2] = {0: p[2][1], **p[2]}
+    elif case == "thresholds_then_truncated":
+        del first[0][3]
+        first[2][3] = p[2][3][:50]
+    elif case == "off_subgroup_then_index_0":  # the subgroup check of validator 0 comes first
+        first[0][2] = _off_subgroup_sig()
+        first[1] = {0: p[1][1], **p[1]}
+    elif case == "infinite_then_off_subgroup":  # validator 2 is never checked
+        first[1][3] = INFINITE
+        first[2][1] = _off_subgroup_sig()
+    elif case == "thresholds_then_off_subgroup":
+        del first[0][3]
+        first[2][1] = _off_subgroup_sig()
+    else:
+        raise AssertionError(case)
+    return first
+
+
+def _message(impl, batch):
+    with pytest.raises(Exception) as err:
+        impl.threshold_aggregate_batch(batch)
+    assert type(err.value).__name__ == "TblsError"
+    return str(err.value)
+
+
+@pytest.fixture(scope="module")
+def reference_trusting():
+    from charon_tpu.tbls.tpu_impl import TPUImpl
+
+    return TPUImpl(decode_mode="python", verify_inputs=False)
+
+
+@pytest.mark.parametrize("case", [
+    "infinite_then_index_0", "index_0_then_empty", "empty_then_index_0", "thresholds_then_infinite",
+    "inconsistent_thresholds", "truncated_then_index_0", "thresholds_then_truncated",
+])
+def test_threshold_aggregate_raises_the_reference_error_first(cluster, trusting, reference_trusting, case):
+    """Validator by validator, as the reference: empty, indices, host decode;
+    the thresholds after every validator."""
+    batch = _bad_batch(cluster["vals"], case)
+    want = _message(reference_trusting, batch)
+    assert _message(trusting, batch) == want
+    if case == "infinite_then_index_0":
+        assert want == "infinite partial signature"
+
+
+@pytest.mark.parametrize("case", [
+    "off_subgroup_then_index_0", "infinite_then_off_subgroup", "thresholds_then_off_subgroup",
+])
+def test_threshold_aggregate_subgroup_error_keeps_the_reference_order(cluster, impl, case):
+    """With the subgroup check on: a partial off the subgroup at a validator
+    before the first host error is named first, and one after it never."""
+    from charon_tpu.tbls.tpu_impl import TPUImpl
+
+    batch = _bad_batch(cluster["vals"], case)
+    want = _message(TPUImpl(decode_mode="python"), batch)
+    assert _message(impl, batch) == want
+    assert want == {"off_subgroup_then_index_0": "partial signature not in G2 subgroup",
+                    "infinite_then_off_subgroup": "infinite partial signature",
+                    "thresholds_then_off_subgroup": "partial signature not in G2 subgroup"}[case]

@@ -1,9 +1,10 @@
 """PyTorch port on the card: each hand-written CUDA kernel (K1 Fp, K1 Fr,
 K2, K3, and the int8 tensor-core K4 Fp, K4 Fr, K5, K6) against its plain
-PyTorch version on the same CUDA tensors, K4-K6 against K1-K3, the tiled
-K2, K4, K5 and K6 at the edges of their tiles and waves (K4-K6 against
-K1-K3 there), and TorchImpl's verify/aggregate on the card against the
-host oracle under both kernel configurations.
+PyTorch version on the same CUDA tensors, K4-K6 against K1-K3, every
+kernel at the edges of its tiles and waves and on operands off 16-byte
+words (K4-K6 against K1-K3 at both kernels' edges), and TorchImpl's
+verify/aggregate on the card against the host oracle under both kernel
+configurations.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where those are absent:
@@ -91,13 +92,13 @@ def test_int8_kernel_matches_its_k1_k3_twin(card, kernel):
 
 
 TILE_EDGES = ["1", "2", "3", "tile-1", "tile", "tile+1", "wave+2tile+1", "warp-1", "warp", "warp+1"]
-TILED = ["fp2_mul", "fp2_mul_mxu", "mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_sqr_mxu"]
+TILED = KERNELS
 
 
 def _edge_rows(kernel, edge):
-    """A row count at an edge of the tiled kernel's tiles or waves: a tile
-    is a large launch's (K4: 128 rows; one warp's 32 up to 32 rows), and
-    one wave is the card's resident blocks times a tile."""
+    """A row count at an edge of the kernel's tiles or waves: a tile is a
+    large launch's (K4: 128 rows, one warp's 32 up to 32 rows; the others:
+    32), and one wave is the card's resident blocks times a tile."""
     sms = MK.sm_count(torch.device("cuda"))
     e = MK.geometry(kernel, 1 << 30, sms).elems
     wave = sms * MK._RESIDENT[kernel] * e
@@ -112,9 +113,9 @@ def _ctx(kernel):
 @pytest.mark.parametrize("edge", TILE_EDGES)
 @pytest.mark.parametrize("kernel", TILED)
 def test_tiled_kernel_at_tile_edges(card, kernel, edge):
-    """K2, K4, K5 and K6 walk tiles in persistent blocks: a partial last
-    tile, a single tile and a launch past one wave all equal the plain
-    version, and only the launched rows are written."""
+    """Every kernel walks tiles in persistent blocks: a partial last tile, a
+    single tile and a launch past one wave all equal the plain version,
+    and only the launched rows are written."""
     rows, ctx = _edge_rows(kernel, edge), _ctx(kernel)
     ops = [_operand(ctx, rows + 6, seed, card).roll(seed, 0)[:rows] for seed in range(4)]
     got, want = _call(kernel, ctx, ops), _call(kernel, ctx, ops, plain=True)
@@ -134,11 +135,15 @@ def test_k5_matches_k2_at_tile_edges(card, edge):
 
 
 @pytest.mark.parametrize("edge", TILE_EDGES)
-@pytest.mark.parametrize("kernel", ["mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_sqr_mxu"])
+@pytest.mark.parametrize(
+    "kernel", ["mont_mul_mxu_fp", "mont_mul_mxu_fr", "fp2_sqr_mxu", "mont_mul_fp", "mont_mul_fr", "fp2_sqr"]
+)
 def test_k4_k6_match_k1_k3_at_tile_edges(card, kernel, edge):
+    """K4 == K1 and K6 == K3 at the edges of `kernel`'s tiles and waves."""
     rows, ctx = _edge_rows(kernel, edge), _ctx(kernel)
+    int8 = kernel if "_mxu" in kernel else kernel.replace("mont_mul", "mont_mul_mxu").replace("fp2_sqr", "fp2_sqr_mxu")
     ops = [_operand(ctx, rows + 6, 5 * seed + 1, card).roll(2 * seed, 0)[:rows] for seed in range(4)]
-    got, twin = _call(kernel, ctx, ops), _call(kernel.replace("_mxu", ""), ctx, ops)
+    got, twin = _call(int8, ctx, ops), _call(int8.replace("_mxu", ""), ctx, ops)
     torch.cuda.synchronize()
     for g, w in zip(got, twin):
         assert torch.equal(g, w)
@@ -147,15 +152,18 @@ def test_k4_k6_match_k1_k3_at_tile_edges(card, kernel, edge):
 @pytest.mark.parametrize("kernel", TILED)
 def test_tiled_kernel_takes_operands_off_16_byte_words(card, kernel):
     """A view that starts 8 bytes into a 16-byte word is copied before the
-    launch (the tiles move in 16-byte words); the result is unchanged."""
+    launch (the tiles move in 16-byte words) and the copy counted; the
+    result is unchanged."""
     rows, ctx = 77, _ctx(kernel)
     flat = torch.zeros(rows * ctx.n_limbs + 1, dtype=torch.int64, device=card)
     flat[1:] = _operand(ctx, rows, 3, card).reshape(-1)
     a0 = flat[1:].view(rows, ctx.n_limbs)
     assert a0.data_ptr() % 16 == 8
     ops = [a0] + [_operand(ctx, rows, seed, card).roll(seed, 0) for seed in range(1, 4)]
+    before = MK.ALIGN_COPIES[kernel]
     got, want = _call(kernel, ctx, ops), _call(kernel, ctx, ops, plain=True)
     torch.cuda.synchronize()
+    assert MK.ALIGN_COPIES[kernel] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

@@ -1,7 +1,7 @@
-"""PyTorch port: the launch geometry of the tiled kernels K2, K4, K5, K6.
+"""PyTorch port: the launch geometry of the tiled kernels K1-K6.
 
-ops/mont_kernels.fp2_geometry (K2, K5, K6) and mont_geometry (K4, Fp and
-Fr) turn a row count and the card's SM count into the tiled launch
+ops/mont_kernels.fp2_geometry (K2, K3, K5, K6) and mont_geometry (K1 and
+K4, Fp and Fr) turn a row count and the card's SM count into the tiled launch
 (elements a tile, threads, grid, dynamic shared bytes); the C entry points
 check it and the kernels walk it. Here, on the CPU: every row is computed
 by exactly one block, once; a block stays inside the card's limits on
@@ -17,17 +17,23 @@ import pathlib
 import re
 
 import pytest
+import torch
 
 from charon_tpu_torch.ops import mont_kernels as MK
 
 CSRC = pathlib.Path(MK.__file__).resolve().parent.parent / "csrc"
-TILED = ["fp2_mul", "fp2_mul_mxu", "fp2_sqr_mxu"]
-MONT = ["mont_mul_mxu_fp", "mont_mul_mxu_fr"]
-ROWS = [1, 2, 3, 31, 32, 33, 135, 3072, 4099, 6144, 8192, 12288, 16384, 24576,
-        33857, 65533, 65536, 65537, 262147]
-# K4's own edges and its duty's row counts
-MONT_ROWS = [1, 2, 8, 9, 18, 31, 32, 33, 127, 128, 129, 384, 1024, 2048, 4096, 8192,
-             50945, 65536, 262147]
+TILED = ["fp2_mul", "fp2_sqr", "fp2_mul_mxu", "fp2_sqr_mxu"]
+MONT = ["mont_mul_fp", "mont_mul_fr", "mont_mul_mxu_fp", "mont_mul_mxu_fr"]
+# the Fp2 kernels' duty row counts (K2/K5: 48, 384, 6144, 24576; K3/K6: 9,
+# 18, 2048, 8192), tile edges, and their waves on 132 SMs (K2/K5: 16,896
+# rows, K6: 25,344, K3: 33,792) plus two tiles and one
+ROWS = [1, 2, 3, 9, 18, 31, 32, 33, 48, 135, 384, 2048, 3072, 4099, 6144, 8192, 12288, 16384,
+        16961, 24576, 25409, 33791, 33792, 33793, 33857, 65533, 65536, 65537, 262147]
+# K1's and K4's own edges, their duty's row counts (1, 8, 384, 1024, 4096),
+# and their waves on 132 SMs (K4: 50,688 rows, K1: 67,584) plus two tiles
+# and one
+MONT_ROWS = [1, 2, 8, 9, 18, 31, 32, 33, 63, 64, 65, 127, 128, 129, 384, 1024, 2048, 4096,
+             8192, 50945, 65536, 67583, 67584, 67585, 67649, 262147]
 H100_SMS = 132
 # What one block may take on the card, and what an SM holds (H100)
 MAX_THREADS = 1024
@@ -61,13 +67,18 @@ def test_geometry_covers_every_row_once(kernel, rows):
 @pytest.mark.parametrize("rows", MONT_ROWS)
 @pytest.mark.parametrize("kernel", MONT)
 def test_mont_geometry_covers_every_row_once(kernel, rows):
-    """K4: one one-warp block up to a warp's rows, else 128-row tiles in at
-    most the card's resident blocks."""
+    """K1 and K4: one one-warp block up to a warp's rows, else tiles of the
+    kernel's size (K1: a warp's rows, K4: 128) in at most the card's
+    resident blocks."""
     g = MK.mont_geometry(kernel, rows, H100_SMS)
     tiles = -(-rows // g.elems)
     seen = [r for b in range(g.grid) for tile in _block_tiles(g, b) for r in tile]
     assert sorted(seen) == list(range(rows))
-    assert g.elems == g.threads == (32 if rows <= 32 else MK.MONT_TILE_ROWS)
+    assert g.elems == g.threads == (32 if rows <= 32 else MK.MONT_TILE_ROWS[kernel])
+    # K1 takes a launch of at most a warp's rows straight into registers:
+    # no shared memory; everything else stages its tiles
+    unstaged = rows <= 32 and kernel in ("mont_mul_fp", "mont_mul_fr")
+    assert g.smem == (0 if unstaged else MK._SMEM[kernel, g.elems])
     assert g.grid == min(tiles, H100_SMS * MK._RESIDENT[kernel])
     assert {len(_block_tiles(g, b)) for b in range(g.grid)} <= {tiles // g.grid, -(-tiles // g.grid)}
     assert MK.geometry(kernel, rows, H100_SMS) == g
@@ -81,7 +92,7 @@ def test_mont_geometry_within_card_limits(kernel, sms):
         assert g.threads % 32 == 0 and g.threads <= MAX_THREADS
         assert g.smem <= MAX_SMEM
         assert 1 <= g.grid <= min(2**31 - 1, sms * MK._RESIDENT[kernel])
-        if g.threads == MK.MONT_TILE_ROWS:
+        if rows > MK.WARP_ROWS:
             # the blocks counted as resident fit one SM's shared memory and registers
             assert MK._RESIDENT[kernel] * (g.smem + BLOCK_RESERVED) <= SM_SHARED
             assert SM_REGISTERS // (MK._RESIDENT[kernel] * g.threads) >= 128
@@ -105,23 +116,35 @@ def test_geometry_within_card_limits(kernel, sms):
 
 def test_geometry_mirrors_the_sources():
     tile = (CSRC / "tile.cuh").read_text()
-    mxu = (CSRC / "mont_mxu.cuh").read_text()
+    k1 = (CSRC / "mont_mul.cu").read_text()
+    k23 = (CSRC / "fp2.cu").read_text()
     k4 = (CSRC / "mont_mxu.cu").read_text()
     k56 = (CSRC / "fp2_mxu.cu").read_text()
     assert re.search(r"kTileElems = (\d+);", tile).group(1) == str(MK.TILE_ELEMS)
-    assert re.search(r"kWarpRows = (\d+);", mxu).group(1) == str(MK.WARP_ROWS)
-    assert re.search(r"kMontMxuThreads = (\d+);", k4).group(1) == str(MK.MONT_TILE_ROWS)
+    assert re.search(r"kWarpRows = (\d+);", tile).group(1) == str(MK.WARP_ROWS)
+    k1_tile = int(re.search(r"kMontTileRows = (\d+);", k1).group(1))
+    k4_tile = int(re.search(r"kMontMxuThreads = (\d+);", k4).group(1))
+    assert MK.MONT_TILE_ROWS == {"mont_mul_fp": k1_tile, "mont_mul_fr": k1_tile,
+                                 "mont_mul_mxu_fp": k4_tile, "mont_mul_mxu_fr": k4_tile}
     blocks = {
-        "fp2_mul": re.search(r"kFp2MulBlocks = (\d+);", (CSRC / "fp2.cu").read_text()),
-        "fp2_mul_mxu": re.search(r"kFp2MulMxuBlocks = (\d+);", k56),
-        "fp2_sqr_mxu": re.search(r"kFp2SqrMxuBlocks = (\d+);", k56),
+        "mont_mul_fp": re.search(r"kMontBlocks = (\d+);", k1),
+        "mont_mul_fr": re.search(r"kMontBlocks = (\d+);", k1),
+        "fp2_mul": re.search(r"kFp2MulBlocks = (\d+);", k23),
+        "fp2_sqr": re.search(r"kFp2SqrBlocks = (\d+);", k23),
         "mont_mul_mxu_fp": re.search(r"kMontMxuBlocks = (\d+);", k4),
         "mont_mul_mxu_fr": re.search(r"kMontMxuBlocks = (\d+);", k4),
+        "fp2_mul_mxu": re.search(r"kFp2MulMxuBlocks = (\d+);", k56),
+        "fp2_sqr_mxu": re.search(r"kFp2SqrMxuBlocks = (\d+);", k56),
     }
     assert {k: int(m.group(1)) for k, m in blocks.items()} == MK._RESIDENT
+    # the launch bounds name those constants
+    assert "__launch_bounds__(Elems, kMontBlocks)" in k1
+    assert re.search(r"if \(rows <= kWarpRows\) \{\n\s+if \(smem != 0\)", k1)
+    assert "__launch_bounds__(kFp2SqrThreads, kFp2SqrBlocks)" in k23
     # roles: threads a tile over its elements
     assert re.search(r"kFp2MulThreads = (\d+) \* kTileElems;", tile).group(1) == str(MK._ROLES["fp2_mul"])
-    assert re.search(r"kFp2SqrThreads = (\d+) \* kTileElems;", k56).group(1) == str(MK._ROLES["fp2_sqr_mxu"])
+    assert re.search(r"kFp2SqrThreads = (\d+) \* kTileElems;", tile).group(1) == str(MK._ROLES["fp2_sqr"])
+    assert MK._ROLES["fp2_mul_mxu"] == MK._ROLES["fp2_mul"] and MK._ROLES["fp2_sqr_mxu"] == MK._ROLES["fp2_sqr"]
     # shared bytes: the staged operands (rows of 18 int64 for Fp, 11 for
     # Fr), the product and output limb planes of 32-bit words, and for the
     # int8 kernels, 32-byte aligned, the 16-byte piece rows, one 32-column
@@ -133,7 +156,10 @@ def test_geometry_mirrors_the_sources():
 
     fp2_mul = 4 * e * 18 * 8 + 5 * 16 * (e + 1) * 4
     assert MK._SMEM == {
+        ("mont_mul_fp", 32): 2 * 32 * 18 * 8 + 16 * 33 * 4,
+        ("mont_mul_fr", 32): 7088,  # 2 x 32 x 11 x 8 + 11 x 33 x 4 = 7084, aligned
         ("fp2_mul", e): fp2_mul,
+        ("fp2_sqr", e): 2 * e * 18 * 8 + 2 * 16 * (e + 1) * 4,
         ("fp2_mul_mxu", e): fp2_mul + conv(3 * e),
         ("fp2_sqr_mxu", e): 2 * e * 18 * 8 + 2 * 16 * (e + 1) * 4 + conv(2 * e),
         ("mont_mul_mxu_fp", 32): 2 * 32 * 18 * 8 + 16 * 33 * 4 + conv(32),
@@ -141,7 +167,7 @@ def test_geometry_mirrors_the_sources():
         ("mont_mul_mxu_fr", 32): 7104 + conv(32),  # 2 x 32 x 11 x 8 + 11 x 33 x 4 = 7084, aligned
         ("mont_mul_mxu_fr", 128): 28224 + conv(128),  # 22,528 + 5,676 = 28,204, aligned
     }
-    assert list(MK._SMEM.values()) == [28992, 54080, 32384, 24128, 76352, 19904, 59456]
+    assert list(MK._SMEM.values()) == [11328, 7088, 28992, 13440, 54080, 32384, 24128, 76352, 19904, 59456]
 
 
 _C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
@@ -200,17 +226,24 @@ def fake_card(monkeypatch):
     MK.reset_launches()
 
 
-def test_tiled_wrapper_passes_geometry(fake_card):
-    """The wrapper hands a tiled kernel fp2_geometry's numbers after the
-    row count, and an untiled one none."""
+@pytest.mark.parametrize("rows", [1, 8, 9, 32, 33, 384, 1024, 2048, 24576, 65536])
+def test_tiled_wrapper_passes_geometry(fake_card, rows):
+    """K1 (Fp and Fr) gets mont_geometry's numbers after the row count, K2
+    and K3 fp2_geometry's; each launch is counted under its kernel and row
+    count, and reset_launches clears the counts."""
     calls = fake_card
-    for kernel, fn, n in (("fp2_mul", "charon_fp2_mul", 6), ("fp2_sqr", "charon_fp2_sqr", 4)):
-        MK._launch("fp2.cu", fn, MK.limb.FP, kernel, [_FakeTensor(24576)] * n)
-    g = MK.fp2_geometry("fp2_mul", 24576, 114)
-    (_, mul_args), (_, sqr_args) = calls
-    assert mul_args[6:11] == (24576, g.elems, g.threads, g.grid, g.smem)
-    assert sqr_args[4:6] == (24576, 16)
-    assert MK.ROWS["fp2_mul"] == {24576: 1} and MK.ROWS["fp2_sqr"] == {24576: 1}
+    launches = (("mont_mul.cu", "charon_mont_mul", MK.limb.FP, "mont_mul_fp", 3, 16),
+                ("mont_mul.cu", "charon_mont_mul", MK.limb.FR, "mont_mul_fr", 3, 11),
+                ("fp2.cu", "charon_fp2_mul", MK.limb.FP, "fp2_mul", 6, 16),
+                ("fp2.cu", "charon_fp2_sqr", MK.limb.FP, "fp2_sqr", 4, 16))
+    for source, fn, ctx, kernel, n_ptr, n in launches:
+        MK._launch(source, fn, ctx, kernel, [_FakeTensor(rows, n)] * n_ptr)
+    for (source, fn, _, kernel, n_ptr, n), (called, args) in zip(launches, calls):
+        g = MK.geometry(kernel, rows, 114)
+        assert called == fn
+        assert args[n_ptr:n_ptr + 6] == (rows, g.elems, g.threads, g.grid, g.smem, n)
+        assert len(args) == len(MK._SOURCES[source][fn])
+        assert MK.ROWS[kernel] == {rows: 1} and MK.LAUNCHES[kernel] == 1
     MK.reset_launches()
     assert MK.ROWS["fp2_mul"] == {} and MK.LAUNCHES["fp2_mul"] == 0
 
@@ -234,4 +267,25 @@ def test_int8_wrapper_passes_geometry(fake_card, rows):
         assert len(args) == len(MK._SOURCES["fp2_mxu.cu" if kernel == "fp2_sqr_mxu" else "mont_mxu.cu"][
             "charon_fp2_sqr_mxu" if kernel == "fp2_sqr_mxu" else "charon_mont_mul_mxu"])
         assert MK.ROWS[kernel] == {rows: 1} and MK.LAUNCHES[kernel] == 1
-    assert MK.geometry("mont_mul_fp", rows, 114) is None and MK.geometry("fp2_sqr", rows, 114) is None
+    # every kernel is tiled: K1 and K3 take the geometry of K4 and K6's shape
+    assert MK.geometry("mont_mul_fp", rows, 114) == MK.mont_geometry("mont_mul_fp", rows, 114)
+    assert MK.geometry("fp2_sqr", rows, 114) == MK.fp2_geometry("fp2_sqr", rows, 114)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [16, 11])
+def test_aligned_copies_only_views_off_16_byte_words(n, offset):
+    """The tiles move in 16-byte words: _aligned hands a view that starts on
+    one through as it is, copies one that starts between them (an Fr view
+    at an odd row), and counts each copy under its kernel."""
+    MK.reset_launches()
+    base = torch.arange(9 * n, dtype=torch.int64).view(9, n)
+    view = base[offset:offset + 4]
+    (got,) = MK._aligned("mont_mul_fr", [view])
+    assert torch.equal(got, view) and got.data_ptr() % 16 == 0
+    copied = view.data_ptr() % 16 != 0
+    assert copied == (n % 2 == 1 and offset == 1)
+    assert (got.data_ptr() != view.data_ptr()) == copied
+    assert MK.ALIGN_COPIES["mont_mul_fr"] == int(copied)
+    MK.reset_launches()
+    assert MK.ALIGN_COPIES["mont_mul_fr"] == 0

@@ -131,6 +131,116 @@ def test_k1_plain_matches_pallas_kernel_interpret(name):
     assert np.array_equal(convert.limbs_to_jax(got, name + "32"), want)
 
 
+# -- K1-K3's 32-bit Fp product (csrc/mont_field.cuh mont_mul32), transcribed --
+
+W32 = 1 << 32
+M32 = W32 - 1
+
+
+def _limbs_to_words(x):
+    """16 24-bit limbs (rows, 16) -> 12 32-bit words (rows, 12) of the same
+    integer: limbs 4g..4g+3 make words 3g..3g+2 (limbs_to_words)."""
+    x = x.astype(np.uint64)
+    w = np.empty(x.shape[:-1] + (12,), np.uint64)
+    for g in range(4):
+        l0, l1, l2, l3 = (x[..., 4 * g + k] for k in range(4))
+        w[..., 3 * g] = (l0 | l1 << 24) & M32
+        w[..., 3 * g + 1] = (l1 >> 8 | l2 << 16) & M32
+        w[..., 3 * g + 2] = (l2 >> 16 | l3 << 8) & M32
+    return w
+
+
+def _words_to_limbs(w):
+    x = np.empty(w.shape[:-1] + (16,), np.int64)
+    mask = np.uint64(0xFFFFFF)
+    for g in range(4):
+        w0, w1, w2 = (w[..., 3 * g + k] for k in range(3))
+        x[..., 4 * g] = w0 & mask
+        x[..., 4 * g + 1] = (w0 >> 24 | w1 << 8) & mask
+        x[..., 4 * g + 2] = (w1 >> 16 | w2 << 16) & mask
+        x[..., 4 * g + 3] = w2 >> 8
+    return x
+
+
+def _pinv32(p0):
+    """-p^-1 mod 2^32 as make_modulus computes it: Newton's iteration from
+    p0, which is its own inverse mod 2^3."""
+    inv = p0
+    for _ in range(4):
+        inv = inv * (2 - p0 * inv) % W32
+    return -inv % W32
+
+
+def _mont_mul32(a, b, p):
+    """The kernels' 12-word CIOS with no carry word above the top one, on
+    numpy uint64 (every multiply-add of two 32-bit addends fits 64 bits),
+    asserting its bounds: the top word's two carries never carry out, and
+    t stays below 2p after every step."""
+    x, y = _limbs_to_words(a), _limbs_to_words(b)
+    pw = [np.uint64((p >> (32 * j)) & M32) for j in range(12)]
+    assert int(pw[11]) < (1 << 31) - 1  # the no-carry condition
+    pinv = np.uint64(_pinv32(int(pw[0])))
+    t = np.zeros_like(x)
+    sh, m32 = np.uint64(32), np.uint64(M32)
+    for i in range(12):
+        s = x[:, 0] * y[:, i] + t[:, 0]
+        A = s >> sh
+        q = ((s & m32) * pinv) & m32
+        C = (q * pw[0] + (s & m32)) >> sh
+        for j in range(1, 12):
+            s = x[:, j] * y[:, i] + t[:, j] + A
+            A = s >> sh
+            c = q * pw[j] + (s & m32) + C
+            C = c >> sh
+            t[:, j - 1] = c & m32
+        assert ((A + C) >> sh == 0).all()
+        t[:, 11] = A + C
+        assert all(_words_int(row) < 2 * p for row in t)
+    # one conditional subtraction
+    d, borrow = np.empty_like(t), np.zeros(len(t), np.uint64)
+    for j in range(12):
+        v = t[:, j] - pw[j] - borrow  # wraps mod 2^64 where it borrows
+        d[:, j] = v & m32
+        borrow = v >> np.uint64(63)
+    return _words_to_limbs(np.where(borrow[:, None] == 1, t, d))
+
+
+def _words_int(row):
+    return sum(int(w) << (32 * j) for j, w in enumerate(row))
+
+
+def test_k1_fp_32bit_words_and_pinv():
+    """The regrouping is the same integer both ways, and the Newton inverse
+    is -p^-1 mod 2^32; BLS12-381's top word of p is 0x1a0111ea."""
+    ctx = L.FP
+    vals = _values(ctx, 40, 9) + [(1 << 384) - 1]
+    limbs = np.array([L.int_to_limbs(v, 16) for v in vals])
+    words = _limbs_to_words(limbs)
+    assert [_words_int(w) for w in words] == vals
+    assert np.array_equal(_words_to_limbs(words), limbs)
+    p = ctx.modulus
+    assert _pinv32(p % W32) == -pow(p, -1, W32) % W32
+    assert p >> 352 == 0x1A0111EA
+
+
+def test_k1_fp_32bit_product_matches_plain_and_pallas_interpret():
+    """The transcription on edge values (0, 1, p - 1, p - 2, R mod p, p // 2
+    in every pairing) and seeded ones equals mont_mul_plain and the TPU
+    kernel, mont_mul_pallas in interpret mode, limb for limb."""
+    ctx, _, jctx32 = CTXS["fp"]
+    edge = _values(ctx, 6, 0)
+    va = [x for x in edge for _ in edge] + _values(ctx, 300, 11)[6:]
+    vb = [y for _ in edge for y in edge] + _values(ctx, 300, 12)[6:][::-1]
+    a, b = L.pack_mont_host(ctx, va), L.pack_mont_host(ctx, vb)
+    got = _mont_mul32(a, b, ctx.modulus)
+    assert np.array_equal(got, MK.mont_mul_plain(ctx, torch.as_tensor(a), torch.as_tensor(b)).numpy())
+    assert L.unpack_mont_host(ctx, torch.as_tensor(got)) == [x * y % ctx.modulus for x, y in zip(va, vb)]
+    a32 = convert.limbs_to_jax(torch.as_tensor(a), "fp32")
+    b32 = convert.limbs_to_jax(torch.as_tensor(b), "fp32")
+    want = np.asarray(mont_mul_pallas(jctx32, jnp.asarray(a32), jnp.asarray(b32), interpret=True))
+    assert np.array_equal(convert.limbs_to_jax(torch.as_tensor(got), "fp32"), want)
+
+
 def test_k1_wrapper_broadcasts_batch_dims():
     ctx = L.FP
     a = torch.as_tensor(L.pack_mont_host(ctx, _values(ctx, 6, 5))).reshape(2, 3, 16)
