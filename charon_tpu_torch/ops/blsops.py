@@ -1,9 +1,10 @@
-"""User-facing batched BLS operations: verify, threshold-aggregate, aggregate.
+"""User-facing batched BLS operations: verify, threshold-aggregate, aggregate,
+point decode and hash-to-curve.
 
 The port of the main-path subset of charon_tpu/ops/blsops.py. The engine
 takes whole [num_validators, threshold] / [num_sigs] batches and runs them
 on one device as batched tensor programs; the field multiplies inside go to
-the hand-written kernels K1-K3 on a CUDA device.
+the hand-written kernels K1-K6 on a CUDA device.
 
 Shape discipline: public entry points pad the batch axis to the next power
 of two (minimum 4), the JAX package's bucket ladder, so both engines see the
@@ -21,9 +22,11 @@ import numpy as np
 import torch
 
 from charon_tpu_torch.ops import curve as C
+from charon_tpu_torch.ops import decompress as DEC
 from charon_tpu_torch.ops import limb
 from charon_tpu_torch.ops import msm as MSM
 from charon_tpu_torch.ops import pairing as DP
+from charon_tpu_torch.ops import sswu as SSWU
 from charon_tpu_torch.ops.curve import map_point
 from charon_tpu_torch.ops.limb import ModCtx
 
@@ -292,3 +295,56 @@ class BlsEngine:
     @torch.inference_mode()
     def subgroup_check_g1_batch(self, points) -> list[bool]:
         return self._subgroup_check(points, C.g1_ops(self.ctx), self._g1)
+
+    # -- batched point decompression -------------------------------------
+
+    def _padded(self, lanes):
+        """Pad to the lane bucket with copies of lane 0 (valid work, so the
+        pad lanes take the same path as the live ones)."""
+        return lanes + [lanes[0]] * (bucket_lanes(len(lanes)) - len(lanes))
+
+    @torch.inference_mode()
+    def decompress_g2_batch(self, encoded, subgroup_check: bool = True):
+        """Compressed 96-byte G2 lanes (raw bytes or decompress.ParsedPoint)
+        -> ([affine point | None], [valid]): the field work (sqrt, sign,
+        on-curve, psi subgroup check) batched on the device. Per lane,
+        never raises: valid with point None is a well-formed infinity;
+        invalid covers malformed flags, x >= p, non-residue x and (with
+        `subgroup_check`) points off the subgroup."""
+        parsed = [p if isinstance(p, DEC.ParsedPoint) else DEC.parse_g2_lane(p) for p in encoded]
+        n = len(parsed)
+        if n == 0:
+            return [], []
+        x0, x1, sign, inf, ok = DEC.pack_parsed_g2(self.ctx, self._padded(parsed), self.device)
+        aff, valid = DEC.decompress_g2_graph(self.ctx, (x0, x1), sign, inf, ok, subgroup=subgroup_check)
+        return C.g2_unpack(self.ctx, aff)[:n], valid.cpu().tolist()[:n]
+
+    @torch.inference_mode()
+    def decompress_g1_batch(self, encoded, subgroup_check: bool = True):
+        """Compressed 48-byte G1 lanes -> ([affine point | None], [valid])
+        with the GLV subgroup check; the mask contract of
+        decompress_g2_batch."""
+        parsed = [p if isinstance(p, DEC.ParsedPoint) else DEC.parse_g1_lane(p) for p in encoded]
+        n = len(parsed)
+        if n == 0:
+            return [], []
+        x0, sign, inf, ok = DEC.pack_parsed_g1(self.ctx, self._padded(parsed), self.device)
+        aff, valid = DEC.decompress_g1_graph(self.ctx, x0, sign, inf, ok, subgroup=subgroup_check)
+        return C.g1_unpack(self.ctx, aff)[:n], valid.cpu().tolist()[:n]
+
+    # -- batched hash-to-curve -------------------------------------------
+
+    @torch.inference_mode()
+    def hash_to_g2_batch(self, msgs, dst: bytes = SSWU.DST_POP):
+        """Messages (raw bytes, or sswu.HashedMsg lanes hashed on the host
+        under any DST) -> ([affine G2 point], [valid]): SSWU, isogeny and
+        psi cofactor clearing batched on the device; the host pays only
+        expand_message_xmd/hash_to_field. valid is True for every real
+        lane and is carried so a bad lane masks instead of raising."""
+        lanes = [m if isinstance(m, SSWU.HashedMsg) else SSWU.hash_to_field_lane(m, dst) for m in msgs]
+        n = len(lanes)
+        if n == 0:
+            return [], []
+        u00, u01, u10, u11, s0, s1 = SSWU.pack_hashed(self.ctx, self._padded(lanes), self.device)
+        aff, valid = SSWU.hash_to_g2_graph(self.ctx, (u00, u01), (u10, u11), s0, s1)
+        return C.g2_unpack(self.ctx, aff)[:n], valid.cpu().tolist()[:n]

@@ -34,6 +34,7 @@ class FieldOps:
     add: Callable
     sub: Callable
     double: Callable
+    neg: Callable
     small: Callable  # (a, k: static int) -> k*a
     mul_b3: Callable  # multiply by 3*b
     inv: Callable
@@ -52,6 +53,7 @@ def g1_ops(ctx: ModCtx) -> FieldOps:
         add=functools.partial(limb.add_mod, ctx),
         sub=functools.partial(limb.sub_mod, ctx),
         double=functools.partial(limb.double_mod, ctx),
+        neg=functools.partial(limb.neg_mod, ctx),
         small=lambda a, k: _small_fp(ctx, a, k),
         mul_b3=lambda a: _small_fp(ctx, a, 12),
         inv=functools.partial(limb.inv_mod, ctx),
@@ -70,6 +72,7 @@ def g2_ops(ctx: ModCtx) -> FieldOps:
         add=functools.partial(T.fp2_add, ctx),
         sub=functools.partial(T.fp2_sub, ctx),
         double=functools.partial(T.fp2_double, ctx),
+        neg=functools.partial(T.fp2_neg, ctx),
         small=functools.partial(T.fp2_small, ctx),
         mul_b3=lambda a: T.fp2_small(ctx, T.fp2_mul_xi(ctx, a), 12),
         inv=functools.partial(T.fp2_inv, ctx),
@@ -186,6 +189,10 @@ def point_double(f: FieldOps, p):
     return (f.double(xyt), f.add(ty, x3), z3)
 
 
+def point_neg(f: FieldOps, p):
+    return (p[0], f.neg(p[1]), p[2])
+
+
 def point_select(f: FieldOps, mask, p, q):
     return tuple(f.select(mask, a, b) for a, b in zip(p, q))
 
@@ -250,6 +257,22 @@ def point_scalar_mul(f: FieldOps, fr_ctx: ModCtx, p, scalars, nbits: int = 255):
     for i in range(nbits):
         acc = point_double(f, acc)
         acc = point_select(f, bits[i], point_add(f, acc, p), acc)
+    return acc
+
+
+def point_mul_static(f: FieldOps, p, k: int):
+    """[k]P for batched projective points and one static positive scalar:
+    left-to-right, doubling every step and adding P only at the host-known
+    1-bits (the curve twin of limb.mont_pow). The same group element as
+    point_scalar_mul, in another projective representation: compare results
+    through the identity test, affine form or a cross-multiplied check."""
+    if k <= 0:
+        raise ValueError("the static scalar must be positive")
+    acc = p
+    for bit in bin(k)[3:]:  # leading 1: start from P
+        acc = point_double(f, acc)
+        if bit == "1":
+            acc = point_add(f, acc, p)
     return acc
 
 

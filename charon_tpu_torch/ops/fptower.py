@@ -101,6 +101,12 @@ def fp2_conj(ctx, a):
     return (a[0], limb.neg_mod(ctx, a[1]))
 
 
+def fp2_neg(ctx, a):
+    z = torch.zeros_like(a[0])
+    r = limb.sub_mod_many(ctx, [(z, a[0]), (z, a[1])])
+    return (r[0], r[1])
+
+
 # -- stacked fp2 add/sub levels: one limb normalize per dependency level ----
 
 
@@ -144,6 +150,11 @@ def fp2_inv(ctx, a):
 
 def fp2_is_zero(a):
     return limb.is_zero(a[0]) & limb.is_zero(a[1])
+
+
+def fp2_eq(a, b):
+    """Batch mask: a == b (both reduced)."""
+    return torch.all(a[0] == b[0], dim=-1) & torch.all(a[1] == b[1], dim=-1)
 
 
 def fp2_select(mask, a, b):

@@ -10,8 +10,14 @@ points take whole duty sets.
 Host/device split:
   * secret material (keygen, Shamir split/recover, signing) stays on the
     host — the device only ever sees public points;
-  * decode (point decompression, pubkey subgroup check) and hash-to-curve
-    run on the host, cached; signature subgroup checks run on the device;
+  * signature decode: with decode_mode "device" (the default on a CUDA
+    card) one batched device program decompresses, sign-selects and
+    psi-subgroup-checks every signature of a call (ops/decompress.py);
+    with "python" (the default on the CPU) signatures decompress on the
+    host and a separate device [r]P ladder checks the subgroup;
+  * pubkeys and messages are cached per instance by their bytes; a miss
+    decodes on the host, and `warm_point_caches` fills both caches in
+    batched device programs (decompress_g1_batch, hash_to_g2_batch);
   * pairings, Lagrange recombination and point sums run on the device.
 
 A device or kernel error propagates to the caller: this backend has no
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Mapping, NamedTuple, Sequence
 
 from charon_tpu_torch.crypto import g1g2, h2c
@@ -107,7 +114,10 @@ class TorchImpl(Implementation):
 
     device: None means the CUDA card (and raises if there is none); tests
     pass "cpu". verify_inputs: when True (default), signature points are
-    subgroup-checked on the device before use.
+    subgroup-checked on the device before use. decode_mode: "device"
+    decodes signatures in one batched device program, "python" on the
+    host; "auto" (default) is "device" on a CUDA engine and "python" on
+    the CPU.
     """
 
     # Below this size the per-lane pairing check is used directly: RLC's
@@ -117,9 +127,12 @@ class TorchImpl(Implementation):
     # Miller pair per message); beyond it, the ungrouped RLC check.
     RLC_MAX_GROUPS = 8
 
-    def __init__(self, device=None, verify_inputs: bool = True):
+    def __init__(self, device=None, verify_inputs: bool = True, decode_mode: str = "auto"):
+        if decode_mode not in ("auto", "device", "python"):
+            raise ValueError(f"bad decode_mode {decode_mode!r}")
         self.engine = BlsEngine(device)
         self.verify_inputs = verify_inputs
+        self.decode_mode = decode_mode
         self._host = PythonHost()
         # Decompressed pubkeys and hashed messages cached by their bytes
         # (cluster pubshares and duty roots are small recurring sets).
@@ -145,9 +158,24 @@ class TorchImpl(Implementation):
 
     # -- decode -----------------------------------------------------------
 
+    def _device_decode(self) -> bool:
+        if self.decode_mode != "auto":
+            return self.decode_mode == "device"
+        return self.engine.device.type == "cuda"
+
     def _sig_points(self, sigs: Sequence[bytes], what: str) -> list:
-        """Decompress signatures on the host; subgroup-check them on the
-        device when verify_inputs is set."""
+        """Decode signatures, raising the first failing lane's error: in one
+        device program (sqrt, sign, on-curve and, with verify_inputs, the
+        psi subgroup check), or on the host with a separate device subgroup
+        check."""
+        if self._device_decode():
+            pts, valid = self.engine.decompress_g2_batch(sigs, subgroup_check=self.verify_inputs)
+            for pt, ok in zip(pts, valid):
+                if not ok:
+                    raise TblsError(f"{what} failed decompression or subgroup check")
+                if pt is None:
+                    raise TblsError(f"infinite {what}")
+            return pts
         pts = self._decode_sigs(sigs, what)
         self._subgroup_check(pts, what)
         return pts
@@ -166,6 +194,36 @@ class TorchImpl(Implementation):
         if self.verify_inputs and pts and not all(self.engine.subgroup_check_g2_batch(pts)):
             raise TblsError(f"{what} not in G2 subgroup")
 
+    def _sig_point_groups(self, groups, what: str, host_sigs) -> list[list]:
+        """Decode groups of signatures, raising the error that the
+        reference's group-by-group walk (host checks, then _sig_points, for
+        each group) raises first, in one decode: host_sigs(group) raises the
+        group's host error or returns its signatures; every group before the
+        first host error (host_sigs's, or a host decode's in python mode)
+        decodes together, its failures raise in group and lane order, and
+        then that host error."""
+        device = self._device_decode()
+        done, host_error = [], None
+        for group in groups:
+            try:
+                sigs = host_sigs(group)
+                done.append(sigs if device else self._decode_sigs(sigs, what))
+            except TblsError as e:
+                host_error = e
+                break
+        flat = [s for g in done for s in g]
+        if device:
+            flat = self._sig_points(flat, what)
+        else:
+            self._subgroup_check(flat, what)
+        if host_error is not None:
+            raise host_error
+        out, k = [], 0
+        for g in done:
+            out.append(flat[k : k + len(g)])
+            k += len(g)
+        return out
+
     # -- verification -----------------------------------------------------
 
     def verify(self, pubkey: bytes, data: bytes, sig: bytes) -> None:
@@ -180,11 +238,24 @@ class TorchImpl(Implementation):
         msgs: list = [None] * n
         sigs: list = [None] * n
         ok = [True] * n
+        device_decode = self._device_decode()
+        if device_decode:
+            # one device program decodes and subgroup-checks every
+            # signature; malformed lanes stay False (None lanes contribute
+            # neutrally)
+            sigs, sig_ok = self.engine.decompress_g2_batch(
+                [sig for _, _, sig in items], subgroup_check=self.verify_inputs
+            )
+            for i in range(n):
+                if not sig_ok[i] or sigs[i] is None:
+                    ok[i] = False
+                    sigs[i] = None
         for i, (pk, data, sig) in enumerate(items):
             try:
                 pks[i] = self.pubkey_points(pk)
                 msgs[i] = self.msg_points(data)
-                sigs[i] = sig_to_point(sig, subgroup_check=False)
+                if not device_decode:
+                    sigs[i] = sig_to_point(sig, subgroup_check=False)
                 if sigs[i] is None:
                     raise TblsError("infinite signature")
             except TblsError:
@@ -200,7 +271,7 @@ class TorchImpl(Implementation):
             verified = self.engine.verify_batch(pks, msgs, sigs)
         in_subgroup = [True] * n
         live = [i for i in range(n) if sigs[i] is not None]
-        if self.verify_inputs and live:
+        if self.verify_inputs and not device_decode and live:
             checked = self.engine.subgroup_check_g2_batch([sigs[i] for i in live])
             for i, s in zip(live, checked):
                 in_subgroup[i] = s
@@ -244,28 +315,22 @@ class TorchImpl(Implementation):
 
     def threshold_aggregate_batch(self, batch) -> list[bytes]:
         """The reference's checks in its order, validator by validator: an
-        empty partial set, its indices, the host decode of its signatures,
-        their subgroup check; the thresholds after every validator. One
-        device subgroup check covers every validator decoded before the
-        first host error, so its failure outranks that error, as it would
-        have come first."""
+        empty partial set, its indices, the decode of its signatures; the
+        thresholds after every validator. One decode covers every
+        validator before the first host error, and its failures outrank
+        that error, as they would have come first."""
         if not batch:
             return []
-        point_batch, host_error = [], None
-        for partials in batch:
-            try:
-                if not partials:
-                    raise TblsError("no partial signatures")
-                if any(i <= 0 for i in partials):
-                    raise TblsError("share indices are 1-based")
-                pts = self._decode_sigs(list(partials.values()), "partial signature")
-            except TblsError as e:
-                host_error = e
-                break
-            point_batch.append(dict(zip(partials, pts)))
-        self._subgroup_check([pt for p in point_batch for pt in p.values()], "partial signature")
-        if host_error is not None:
-            raise host_error
+
+        def host_sigs(partials):
+            if not partials:
+                raise TblsError("no partial signatures")
+            if any(i <= 0 for i in partials):
+                raise TblsError("share indices are 1-based")
+            return list(partials.values())
+
+        groups = self._sig_point_groups(batch, "partial signature", host_sigs)
+        point_batch = [dict(zip(partials, pts)) for partials, pts in zip(batch, groups)]
         t = len(point_batch[0])
         if any(len(p) != t for p in point_batch):
             raise TblsError("inconsistent thresholds in batch")
@@ -278,10 +343,84 @@ class TorchImpl(Implementation):
     def aggregate_batch(self, groups) -> list[bytes]:
         if not groups:
             return []
-        point_groups = []
-        for sigs in groups:
+
+        def host_sigs(sigs):
             if not sigs:
                 raise TblsError("no signatures")
-            point_groups.append(self._sig_points(sigs, "signature"))
+            return list(sigs)
+
+        point_groups = self._sig_point_groups(groups, "signature", host_sigs)
         out = self.engine.aggregate_sigs_batch(point_groups)
         return [g1g2.g2_to_bytes(pt) for pt in out]
+
+
+# Warm-up lanes a device program: big enough to amortize the launches of a
+# decode, small enough that a warm chunk never holds the card for long.
+WARMUP_CHUNK = 512
+
+
+def warm_point_caches(
+    impl: TorchImpl,
+    pubkeys: Sequence[bytes] = (),
+    messages: Sequence[bytes] = (),
+    device: bool | None = None,
+    chunk: int = WARMUP_CHUNK,
+) -> dict:
+    """Fill `impl`'s pubkey and message caches in bulk, as a node does at
+    boot with its cluster's key set.
+
+    With `device` (None: as impl's decode_mode resolves), pubkeys decode
+    through decompress_g1_batch (GLV subgroup check) and messages through
+    hash_to_g2_batch, `chunk` lanes a program; without, each decodes on
+    the host. Lanes are unique keys not yet cached, at most each cache's
+    capacity (the last ones; the rest count as `overflow`). Invalid lanes
+    are not inserted: the on-demand decode raises their precise error when
+    a key is used. A device error propagates: there is no step-down to the
+    host decode.
+
+    Returns per-cache lane counts by source (device/python/cached/invalid)
+    and the wall `seconds`."""
+    t0 = time.monotonic()
+    if device is None:
+        device = impl._device_decode()
+    eng = impl.engine
+    stats = {name: {"device": 0, "python": 0, "cached": 0, "invalid": 0} for name in ("pubkey", "message")}
+
+    def work(keys, cache, bulk, single, name):
+        st = stats[name]
+        uniq = list(dict.fromkeys(keys))
+        todo = [k for k in uniq if k not in cache]
+        st["cached"] += len(uniq) - len(todo)
+        cap = cache.cache_info().maxsize
+        if len(todo) > cap:
+            # decoding past capacity would only evict its own results
+            st["overflow"] = st.get("overflow", 0) + len(todo) - cap
+            todo = todo[-cap:]
+        for i in range(0, len(todo), chunk):
+            batch = todo[i : i + chunk]
+            if device:
+                pts, valid = bulk(batch)
+                for k, pt, ok in zip(batch, pts, valid):
+                    if ok and pt is not None:
+                        cache.put(k, pt)
+                        st["device"] += 1
+                    else:
+                        st["invalid"] += 1
+                continue
+            for k in batch:
+                try:
+                    cache.put(k, single(k))
+                    st["python"] += 1
+                except TblsError:
+                    st["invalid"] += 1
+
+    work(
+        pubkeys,
+        impl.pubkey_points,
+        lambda b: eng.decompress_g1_batch(b, subgroup_check=True),
+        _decode_pubkey_point,
+        "pubkey",
+    )
+    work(messages, impl.msg_points, eng.hash_to_g2_batch, _decode_msg_point, "message")
+    stats["seconds"] = time.monotonic() - t0
+    return stats

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (charon_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8]
+    python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8] [--python-decode]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -22,17 +22,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      startup tuner on the card: autotune.resolve("force") over the
      mxu_mont axis (K1-K3 vs K4-K6) at the duty's lane count, its timings,
      spread and choice;
-  5. the int8 configuration's duty at full width: KernelConfig(mxu_mont=
-     True).apply(), then a 1k-validator 4-of-7 attestation duty through
-     TorchImpl (verify 4096 partials by grouped RLC, a forged lane found by
-     the per-lane re-check, Lagrange recombination of 1024 group
-     signatures checked against host recombination, verification of the
-     group signatures), with each stage's wall time, each kernel's
-     launches and the operands copied onto 16-byte words before a launch
-     — K4 Fp, K4 Fr, K5 and K6 must launch, K1-K3 never;
-  6. the default configuration's duty (KernelConfig()) on the same
-     validators — K1-K3 must launch, K4-K6 never;
-  7. a torch.profiler trace of two main-path loop bodies under each
+  5. the int8 configuration (KernelConfig(mxu_mont=True).apply()): first
+     the device decode batteries: decompress_g2_batch and
+     decompress_g1_batch, with and without the subgroup check, on every
+     edge class of the mask contract (both signs, infinity, bad flags,
+     x >= p, non-residue x, on-curve off the subgroup, wrong length) with
+     zero mask or point mismatches against the host oracle
+     g1g2.g*_from_bytes, and hash_to_g2_batch on the five RFC 9380
+     J.10.1 vectors and the duty's messages against h2c.hash_to_g2, each
+     call's wall time and the path's launches; then the boot warm-up of a
+     fresh TorchImpl (warm_point_caches over the duty's group pubkeys,
+     signer pubshares and messages, every unique lane decoded on the
+     device); then a 1k-validator 4-of-7 attestation duty through that
+     TorchImpl, signatures decoded on the device (decode_mode "auto";
+     decompress_g2_batch must run, the [r]P subgroup check and the host
+     sig_to_point never): verify 4096 partials by grouped RLC, a forged
+     lane found by the per-lane re-check, Lagrange recombination of 1024
+     group signatures checked against host recombination, verification of
+     the group signatures; each stage's wall time, each kernel's launches
+     and the operands copied onto 16-byte words before a launch — K4 Fp,
+     K4 Fr, K5 and K6 must launch, K1-K3 never; with --python-decode the
+     same warm-up and duty follow with decode_mode "python", for the host
+     decode's stage times from the same machine;
+  6. the default configuration (KernelConfig()): the decode batteries, the
+     warm-up and the duty again — K1-K3 must launch, K4-K6 never;
+  7. a torch.profiler trace of four main-path loop bodies under each
      configuration (kernel time, idle share, top kernels);
   8. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
@@ -94,6 +108,9 @@ KERNELS = {
 }
 INT8_KERNELS = tuple(k for k in KERNELS if "_mxu" in k)
 DEFAULT_KERNELS = tuple(k for k in KERNELS if "_mxu" not in k)
+# decode and hash-to-curve do no Fr product
+INT8_DECODE_KERNELS = tuple(k for k in INT8_KERNELS if not k.endswith("_fr"))
+DEFAULT_DECODE_KERNELS = tuple(k for k in DEFAULT_KERNELS if not k.endswith("_fr"))
 CHECK_ROWS = (8192, 65533, 65536)
 TIMED_ROWS = 65536
 DUTY_SHAPES = 4  # row counts a kernel is timed at beyond TIMED_ROWS
@@ -370,6 +387,194 @@ def run_tuner(lanes: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 5 and 6: the device decode batteries
+# ---------------------------------------------------------------------------
+
+# RFC 9380 appendix J.10.1, BLS12381G2_XMD:SHA-256_SSWU_RO_: (msg, P.x =
+# (c0, c1), P.y = (c0, c1)), the affine hash_to_curve outputs verbatim.
+RFC_DST = b"QUUX-V01-CS02-with-BLS12381G2_XMD:SHA-256_SSWU_RO_"
+RFC_VECTORS = [
+    (
+        b"",
+        (
+            0x0141EBFBDCA40EB85B87142E130AB689C673CF60F1A3E98D69335266F30D9B8D4AC44C1038E9DCDD5393FAF5C41FB78A,
+            0x05CB8437535E20ECFFAEF7752BADDF98034139C38452458BAEEFAB379BA13DFF5BF5DD71B72418717047F5B0F37DA03D,
+        ),
+        (
+            0x0503921D7F6A12805E72940B963C0CF3471C7B2A524950CA195D11062EE75EC076DAF2D4BC358C4B190C0C98064FDD92,
+            0x12424AC32561493F3FE3C260708A12B7C620E7BE00099A974E259DDC7D1F6395C3C811CDD19F1E8DBF3E9ECFDCBAB8D6,
+        ),
+    ),
+    (
+        b"abc",
+        (
+            0x02C2D18E033B960562AAE3CAB37A27CE00D80CCD5BA4B7FE0E7A210245129DBEC7780CCC7954725F4168AFF2787776E6,
+            0x139CDDBCCDC5E91B9623EFD38C49F81A6F83F175E80B06FC374DE9EB4B41DFE4CA3A230ED250FBE3A2ACF73A41177FD8,
+        ),
+        (
+            0x1787327B68159716A37440985269CF584BCB1E621D3A7202BE6EA05C4CFE244AEB197642555A0645FB87BF7466B2BA48,
+            0x00AA65DAE3C8D732D10ECD2C50F8A1BAF3001578F71C694E03866E9F3D49AC1E1CE70DD94A733534F106D4CEC0EDDD16,
+        ),
+    ),
+    (
+        b"abcdef0123456789",
+        (
+            0x121982811D2491FDE9BA7ED31EF9CA474F0E1501297F68C298E9F4C0028ADD35AEA8BB83D53C08CFC007C1E005723CD0,
+            0x190D119345B94FBD15497BCBA94ECF7DB2CBFD1E1FE7DA034D26CBBA169FB3968288B3FAFB265F9EBD380512A71C3F2C,
+        ),
+        (
+            0x05571A0F8D3C08D094576981F4A3B8EDA0A8E771FCDCC8ECCEAF1356A6ACF17574518ACB506E435B639353C2E14827C8,
+            0x0BB5E7572275C567462D91807DE765611490205A941A5A6AF3B1691BFE596C31225D3AABDF15FAFF860CB4EF17C7C3BE,
+        ),
+    ),
+    (
+        b"q128_" + b"q" * 128,
+        (
+            0x19A84DD7248A1066F737CC34502EE5555BD3C19F2ECDB3C7D9E24DC65D4E25E50D83F0F77105E955D78F4762D33C17DA,
+            0x0934ABA516A52D8AE479939A91998299C76D39CC0C035CD18813BEC433F587E2D7A4FEF038260EEF0CEF4D02AAE3EB91,
+        ),
+        (
+            0x14F81CD421617428BC3B9FE25AFBB751D934A00493524BC4E065635B0555084DD54679DF1536101B2C979C0152D09192,
+            0x09BCCCFA036B4847C9950780733633F13619994394C23FF0B32FA6B795844F4A0673E20282D07BC69641CEE04F5E5662,
+        ),
+    ),
+    (
+        b"a512_" + b"a" * 512,
+        (
+            0x01A6BA2F9A11FA5598B2D8ACE0FBE0A0EACB65DECEB476FBBCB64FD24557C2F4B18ECFC5663E54AE16A84F5AB7F62534,
+            0x11FCA2FF525572795A801EED17EB12785887C7B63FB77A42BE46CE4A34131D71F7A73E95FEE3F812AEA3DE78B4D01569,
+        ),
+        (
+            0x0B6798718C8AED24BC19CB27F866F1C9EFFCDBF92397AD6448B5C9DB90D2B9DA6CBABF48ADC1ADF59A1A28344E79D57E,
+            0x03A47F8E6D1763BA0CAD63D6114C0ACCBEF65707825A511B251A660A9B3994249AE4E63FAC38B23DA0C398689EE2AB52,
+        ),
+    ),
+]
+
+
+def _encode(x: int, nbytes: int) -> bytes:
+    out = bytearray(x.to_bytes(nbytes, "big"))
+    out[0] |= 0x80
+    return bytes(out)
+
+
+def decode_batteries(seed: int):
+    """Every edge class of the decode mask contract, labelled: the G2 and
+    the G1 battery (host ints, seeded)."""
+    from charon_tpu_torch.crypto import fields as F
+    from charon_tpu_torch.crypto import g1g2
+
+    rng = random.Random(f"decode/{seed}")
+    P = F.P
+
+    def off_subgroup(curve):
+        while True:
+            if curve == "g2":
+                x = (rng.randrange(P), rng.randrange(P))
+                y = F.fp2_sqrt(F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), g1g2.B2))
+                if y is not None and not g1g2.g2_in_subgroup((x, y)):
+                    return g1g2.g2_to_bytes((x, y))
+            else:
+                x = rng.randrange(P)
+                y = F.fp_sqrt((x * x * x + g1g2.B1) % P)
+                if y is not None and not g1g2.g1_in_subgroup((x, y)):
+                    return g1g2.g1_to_bytes((x, y))
+
+    def non_residue(curve):
+        while True:
+            if curve == "g2":
+                x = (rng.randrange(P), rng.randrange(P))
+                if F.fp2_sqrt(F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), g1g2.B2)) is None:
+                    return _encode((x[1] << 384) | x[0], 96)
+            else:
+                x = rng.randrange(P)
+                if F.fp_sqrt((x * x * x + g1g2.B1) % P) is None:
+                    return _encode(x, 48)
+
+    def flip(enc, bit=0x20):
+        return bytes([enc[0] ^ bit]) + enc[1:]
+
+    batteries = {}
+    for curve, nbytes, gen, mul, to_bytes, rounds in (
+        ("g2", 96, g1g2.G2_GEN, g1g2.g2_mul_raw, g1g2.g2_to_bytes, 6),
+        ("g1", 48, g1g2.G1_GEN, g1g2.g1_mul_raw, g1g2.g1_to_bytes, 3),
+    ):
+        lanes = []
+        for i in range(rounds):
+            enc = to_bytes(mul(gen, rng.randrange(1, F.R)))
+            lanes.append((f"roundtrip-{i}", enc))
+            if i < 2:  # both sign bits for the same x
+                lanes.append((f"signflip-{i}", flip(enc)))
+        inf = to_bytes(None)
+        lanes += [
+            ("infinity", inf),
+            ("bad-infinity-payload", inf[:20] + b"\x07" + inf[21:]),
+            ("bad-infinity-sign", flip(inf)),
+            ("no-compressed-flag", flip(to_bytes(mul(gen, rng.randrange(1, F.R))), 0x80)),
+            ("x-ge-p", _encode((P << 384) | 1, 96) if curve == "g2" else _encode(P, 48)),
+            ("non-residue-x", non_residue(curve)),
+            ("non-subgroup", off_subgroup(curve)),
+            ("wrong-length", b"\x80" + bytes(nbytes // 2)),
+            ("empty", b""),
+        ]
+        batteries[curve] = lanes
+    return batteries
+
+
+def _oracle(decode, data: bytes, subgroup: bool):
+    try:
+        return True, decode(data, subgroup_check=subgroup)
+    except ValueError:
+        return False, None
+
+
+def run_decode_batteries(engine, batteries, label: str, launched: tuple, idle: tuple) -> dict:
+    """The engine's decode and hash-to-curve calls on the card against the
+    host oracles, with zero mismatches; each call's wall time and the
+    path's launches (counts reset just before and read just after)."""
+    import torch
+
+    from charon_tpu_torch.crypto import g1g2, h2c
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.ops import sswu
+
+    walls = {}
+    MK.reset_launches()
+    for curve, decode in (("g2", g1g2.g2_from_bytes), ("g1", g1g2.g1_from_bytes)):
+        lanes = batteries[curve]
+        for subgroup in (True, False):
+            call = getattr(engine, f"decompress_{curve}_batch")
+            pts, valid = stage(
+                f"decompress_{curve}_x{len(lanes)}_subgroup_{'on' if subgroup else 'off'}",
+                lambda: call([enc for _, enc in lanes], subgroup_check=subgroup), walls,
+            )
+            bad = [name for (name, enc), pt, ok in zip(lanes, pts, valid) if (ok, pt) != _oracle(decode, enc, subgroup)]
+            if bad:
+                raise AssertionError(f"decode {label}: {curve} (subgroup {subgroup}) mismatches the oracle on {bad}")
+            if valid[[name for name, _ in lanes].index("non-subgroup")] == subgroup:
+                raise AssertionError(f"decode {label}: {curve} off-subgroup lane with subgroup check {subgroup}")
+    msgs = [duty_message(v) for v in range(DUTY_MESSAGES)]
+    lanes = [sswu.hash_to_field_lane(m, RFC_DST) for m, _, _ in RFC_VECTORS] + msgs
+    pts, valid = stage(f"hash_to_g2_x{len(lanes)}", lambda: engine.hash_to_g2_batch(lanes), walls)
+    want = [(x, y) for _, x, y in RFC_VECTORS] + [_hashed(m) for m in msgs]
+    if not all(valid) or pts != want:
+        raise AssertionError(f"decode {label}: hash_to_g2 differs from the RFC vectors or h2c.hash_to_g2")
+    torch.cuda.synchronize()
+    launches = dict(MK.LAUNCHES)
+    log(f"decode batteries {label}: zero mismatches; launches", json.dumps(launches))
+    _check_launches(launches, f"decode {label}", launched, idle)
+    MK.reset_launches()
+    return walls
+
+
+def _check_launches(launches: dict, path: str, launched: tuple, idle: tuple) -> None:
+    if not all(launches[name] > 0 for name in launched):
+        raise AssertionError(f"a kernel of the {path} path never launched: {launches}")
+    if any(launches[name] for name in idle):
+        raise AssertionError(f"a kernel outside the {path} path launched: {launches}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 and 6: the 1k-validator 4-of-7 attestation duty
 # ---------------------------------------------------------------------------
 
@@ -428,28 +633,65 @@ def host_setup(n_validators: int, seed: int, workers: int) -> list:
     return vals
 
 
-def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
-    """The duty of validators `vals` through TorchImpl on the card, under
-    the configuration already applied; returns (stage timings, launches
-    per kernel, launches per row count per kernel, the impl, the threshold
-    batch). Every kernel in `launched` must launch during the duty, and
-    none in `idle`."""
+def boot_warm_up(impl, vals: list, label: str) -> dict:
+    """A node's boot: warm_point_caches over the duty's group pubkeys,
+    signer pubshares and messages, as impl's decode_mode resolves it. On
+    the device every unique lane must decode there, none on the host and
+    none invalid. Returns the stats."""
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.tbls.torch_impl import warm_point_caches
+
+    pubkeys = [v[0] for v in vals] + [pk for v in vals for pk in v[2].values()]
+    messages = [v[1] for v in vals]
+    source = "device" if impl._device_decode() else "python"
+    MK.reset_launches()
+    stats = stage(f"warm_up_{source}", lambda: warm_point_caches(impl, pubkeys, messages), {})
+    launches = dict(MK.LAUNCHES)
+    for name, keys in (("pubkey", pubkeys), ("message", messages)):
+        want = {"device": 0, "python": 0, "cached": 0, "invalid": 0, source: len(set(keys))}
+        if stats[name] != want:
+            raise AssertionError(f"warm-up {label}: {name} lanes {stats[name]}, want {want}")
+    log(f"warm-up {label}: {json.dumps(stats)}; launches {json.dumps(launches)}")
+    MK.reset_launches()
+    return stats
+
+
+def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple, decode_mode: str = "auto"):
+    """The duty of validators `vals` through a fresh TorchImpl on the card,
+    under the configuration already applied, after the boot warm-up of its
+    caches; returns (stage timings, launches per kernel, launches per row
+    count per kernel, the impl, the threshold batch). Every kernel in
+    `launched` must launch during the duty, and none in `idle`. With the
+    device decode (decode_mode "auto" on the card) decompress_g2_batch must
+    run and neither the [r]P subgroup check nor the host sig_to_point."""
     from charon_tpu_torch.crypto import bls, g1g2, shamir
     from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.tbls import torch_impl
     from charon_tpu_torch.tbls.python_impl import sig_to_point
-    from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
     n_validators = len(vals)
     lanes = [(vals[v][2][i], vals[v][1], vals[v][3][i]) for v in range(n_validators) for i in vals[v][3]]
-    impl = TorchImpl()
-    grouped = []
-    inner = impl.engine.verify_batch_grouped_rlc
+    impl = torch_impl.TorchImpl(decode_mode=decode_mode)
+    device_decode = impl._device_decode()
+    warm = boot_warm_up(impl, vals, label)
+    calls = {"verify_batch_grouped_rlc": [], "decompress_g2_batch": 0, "subgroup_check_g2_batch": 0, "sig_to_point": 0}
+    inner = {name: getattr(impl.engine, name) for name in ("verify_batch_grouped_rlc", "decompress_g2_batch", "subgroup_check_g2_batch")}
 
-    def counting(groups, rng=None):
-        grouped.append(len(groups))
-        return inner(groups, rng)
+    def grouped(groups, rng=None):
+        calls["verify_batch_grouped_rlc"].append(len(groups))
+        return inner["verify_batch_grouped_rlc"](groups, rng)
 
-    impl.engine.verify_batch_grouped_rlc = counting
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+
+        return call
+
+    impl.engine.verify_batch_grouped_rlc = grouped
+    impl.engine.decompress_g2_batch = counted("decompress_g2_batch", inner["decompress_g2_batch"])
+    impl.engine.subgroup_check_g2_batch = counted("subgroup_check_g2_batch", inner["subgroup_check_g2_batch"])
+    torch_impl.sig_to_point = counted("sig_to_point", sig_to_point)
 
     # forged lane: a validator's first signer signs another duty's message
     forged = list(lanes[:64])
@@ -457,28 +699,37 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
     pk, msg, _ = forged[k]
     forged[k] = (pk, msg, g1g2.g2_to_bytes(bls.sign(vals[k // 4][4], duty_message(k // 4 + 1))))
 
-    log(f"duty {label}: {n_validators} validators, {len(lanes)} partials")
+    log(f"duty {label}: {n_validators} validators, {len(lanes)} partials, decode {'device' if device_decode else 'python'}")
     timings: dict = {}
     MK.reset_launches()
-    got = stage("verify_partials", lambda: impl.verify_batch(lanes), timings)
-    if not all(got) or grouped != [min(DUTY_MESSAGES, n_validators)]:
-        raise AssertionError(f"partials: {got.count(False)} False, grouped calls {grouped}")
-    got = stage("verify_forged_64", lambda: impl.verify_batch(forged), timings)
-    if [i for i, ok in enumerate(got) if not ok] != [k]:
-        raise AssertionError(f"forged batch: False lanes {[i for i, ok in enumerate(got) if not ok]}, want [{k}]")
-    batch = [vals[v][3] for v in range(n_validators)]
-    group_sigs = stage("threshold_aggregate", lambda: impl.threshold_aggregate_batch(batch), timings)
-    got = stage(
-        "verify_group",
-        lambda: impl.verify_batch([(vals[v][0], vals[v][1], group_sigs[v]) for v in range(n_validators)]),
-        timings,
-    )
+    try:
+        got = stage("verify_partials", lambda: impl.verify_batch(lanes), timings)
+        if not all(got) or calls["verify_batch_grouped_rlc"] != [min(DUTY_MESSAGES, n_validators)]:
+            raise AssertionError(f"partials: {got.count(False)} False, grouped calls {calls['verify_batch_grouped_rlc']}")
+        got = stage("verify_forged_64", lambda: impl.verify_batch(forged), timings)
+        if [i for i, ok in enumerate(got) if not ok] != [k]:
+            raise AssertionError(f"forged batch: False lanes {[i for i, ok in enumerate(got) if not ok]}, want [{k}]")
+        batch = [vals[v][3] for v in range(n_validators)]
+        group_sigs = stage("threshold_aggregate", lambda: impl.threshold_aggregate_batch(batch), timings)
+        got = stage(
+            "verify_group",
+            lambda: impl.verify_batch([(vals[v][0], vals[v][1], group_sigs[v]) for v in range(n_validators)]),
+            timings,
+        )
+    finally:
+        torch_impl.sig_to_point = sig_to_point
     if not all(got):
         raise AssertionError(f"group signatures: {got.count(False)} False")
     launches = dict(MK.LAUNCHES)
     rows = {name: dict(counts) for name, counts in MK.ROWS.items()}
     copies = {name: MK.ALIGN_COPIES[name] for name in launched}
     timings["duty_total"] = sum(timings.values())
+    timings["warm_up"] = warm["seconds"]
+    log(f"decode calls over the duty {label}:", json.dumps({n: c for n, c in calls.items() if n != "verify_batch_grouped_rlc"}))
+    if device_decode and (not calls["decompress_g2_batch"] or calls["subgroup_check_g2_batch"] or calls["sig_to_point"]):
+        raise AssertionError(f"duty {label}: signatures were not decoded on the device alone: {calls}")
+    if not device_decode and (calls["decompress_g2_batch"] or not calls["sig_to_point"]):
+        raise AssertionError(f"duty {label}: signatures were not decoded on the host: {calls}")
 
     sample = random.Random(seed + 1).sample(range(n_validators), min(16, n_validators))
     for v in sample:
@@ -494,17 +745,17 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple):
         log(f"rows per launch of {name} ({len(top)} row counts; the top {DUTY_SHAPES} cover "
             f"{covered:.3f} of its launches): " + ", ".join(f"{r} x{n}" for r, n in top[:8]))
     log(f"stage times {label} (s):", json.dumps(timings))
-    if not all(launches[name] > 0 for name in launched):
-        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
-    if any(launches[name] for name in idle):
-        raise AssertionError(f"a kernel outside the {label} path launched: {launches}")
+    _check_launches(launches, f"duty {label}", launched, idle)
     return timings, launches, rows, impl, batch
 
 
 def profile_device(impl, batch, label: str) -> None:
     """Where the device time goes in the loop bodies that make up the
-    main path: one step of the 255-bit G2 subgroup-check ladder over every
-    partial (point arithmetic), and one step of the final exponentiation's
+    main path, over every partial (4096 lanes at full width): one step of
+    the 255-bit G2 [r]P ladder of the host decode's subgroup check (double,
+    add, select), one step of the G2 sqrt chain of the device decode (Fp2
+    square and multiply), one step of its static psi ladder (a double; 5 of
+    its 63 steps also add), and one step of the final exponentiation's
     x-chain over 9 lanes (tower arithmetic). Per step: wall time untraced,
     kernel time traced by torch.profiler, the idle share of the wall (one
     stream, so kernels never overlap), and the top kernels."""
@@ -513,11 +764,10 @@ def profile_device(impl, batch, label: str) -> None:
 
     from charon_tpu_torch.ops import curve as C
     from charon_tpu_torch.ops import fptower as T
-    from charon_tpu_torch.tbls.python_impl import sig_to_point
 
     eng = impl.engine
     f2 = C.g2_ops(eng.ctx)
-    points = [sig_to_point(s, subgroup_check=False) for p in batch for s in p.values()]
+    points, _ = eng.decompress_g2_batch([s for p in batch for s in p.values()])
     proj = C.affine_to_point(f2, C.g2_pack(eng.ctx, points, eng.device))
     f12 = T.fp12_one(eng.ctx, (9,), eng.device)
 
@@ -525,11 +775,23 @@ def profile_device(impl, batch, label: str) -> None:
         acc = C.point_double(f2, proj)
         return C.point_select(f2, torch.ones(len(points), dtype=torch.bool, device=eng.device), C.point_add(f2, acc, proj), acc)
 
+    def sqrt_chain_step():
+        return T.fp2_mul(eng.ctx, T.fp2_sqr(eng.ctx, proj[0]), proj[1])
+
+    def psi_ladder_step():
+        return C.point_double(f2, proj)
+
     def chain_step():
         return T.fp12_mul(eng.ctx, T.fp12_cyclotomic_sqr(eng.ctx, f12), f12)
 
+    steps = (
+        (f"g2_ladder_step_x{len(points)}", ladder_step),
+        (f"g2_sqrt_chain_step_x{len(points)}", sqrt_chain_step),
+        (f"psi_ladder_step_x{len(points)}", psi_ladder_step),
+        ("final_exp_chain_step_x9", chain_step),
+    )
     with torch.inference_mode():
-        for name, step in ((f"g2_ladder_step_x{len(points)}", ladder_step), ("final_exp_chain_step_x9", chain_step)):
+        for name, step in steps:
             step()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -537,17 +799,20 @@ def profile_device(impl, batch, label: str) -> None:
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 5
+            # several steps a trace: a trace of one sub-millisecond step
+            # can come back empty
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                step()
+                for _ in range(5):
+                    step()
                 torch.cuda.synchronize()
             kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-            busy = sum(e.self_device_time_total for e in kernels) / 1e6
-            launches = sum(e.count for e in kernels)
+            busy = sum(e.self_device_time_total for e in kernels) / 1e6 / 5
+            launches = sum(e.count for e in kernels) / 5
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-            log(f"profile {label} {name}: {wall * 1e3:.2f} ms a step, {launches} kernel launches, kernels busy "
-                f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}")
+            log(f"profile {label} {name}: {wall * 1e3:.2f} ms a step, {launches:.0f} kernel launches, kernels busy "
+                f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f} (a step, mean of 5)")
             for e in top:
-                log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:70]}")
+                log(f"  {e.self_device_time_total / 1e3 / 5:8.3f} ms {e.count / 5:7.1f}x  {e.key[:70]}")
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +823,10 @@ def main(argv=None) -> int:
     ap.add_argument("--validators", type=int, default=1024, help="each duty's validators")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--workers", type=int, default=min(8, os.cpu_count() or 1))
+    ap.add_argument(
+        "--python-decode", action="store_true",
+        help="after the int8 duty, run it again with the host decode (decode_mode python) for its stage times",
+    )
     args = ap.parse_args(argv)
     if args.validators < 16:
         ap.error("each duty needs at least 16 validators (the forged batch takes 64 partials)")
@@ -589,10 +858,18 @@ def main(argv=None) -> int:
     vals = host_setup(args.validators, args.seed, args.workers)
     run_tuner(sum(len(v[3]) for v in vals))
 
+    batteries = decode_batteries(args.seed)
     KernelConfig(mxu_mont=True).apply()
+    from charon_tpu_torch.ops.blsops import BlsEngine
+
+    engine = BlsEngine()
+    run_decode_batteries(engine, batteries, "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
     _, int8_launches, int8_rows, impl, batch = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
     profile_device(impl, batch, "int8")
+    if args.python_decode:
+        run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
     KernelConfig().apply()
+    run_decode_batteries(engine, batteries, "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
     _, default_launches, default_rows, _, _ = run_duty(vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS)
     profile_device(impl, batch, "default")
     duty_rows = {name: (int8_rows if name in INT8_KERNELS else default_rows)[name] for name in KERNELS}
