@@ -46,6 +46,8 @@ from typing import Callable
 
 import torch
 
+from charon_tpu_torch.core.cryptoplane import PlaneConfigError, kernel_inventory
+
 log = logging.getLogger("charon_tpu_torch")
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -55,6 +57,7 @@ _PKG = Path(__file__).resolve().parent.parent
 # TUNE_LANES; at 8 lanes every bench is a few launches of host work.
 TUNE_LANES = 8
 TUNE_REPS = 5
+# the bucket shapes of parallel.mesh.SlotCryptoPlane.PREWARM_VERIFY_LANES
 PREWARM_LANES = (4, 16, 64, 256)
 
 PROFILE_VERSION = 1
@@ -100,10 +103,6 @@ _ENV_TOGGLES = (
     ("CHARON_MXU_MONT", "mxu_mont", lambda v: v == "1"),
 )
 _ENV_WARNED = False
-
-
-class PlaneConfigError(ValueError):
-    """A crypto-plane configuration this host cannot run."""
 
 
 class UnroutableConfigError(PlaneConfigError):
@@ -674,8 +673,7 @@ def resolve(
             raise PlaneConfigError(f"autotune {mode} needs the card: {e}") from e
         log.warning("kernel auto-tune skipped, running KernelConfig defaults: %s", e)
         return untuned("skipped")
-    # the slot plane's kernel_inventory() is not ported yet
-    families: list = []
+    families = sorted(kernel_inventory(dev))
 
     p = Path(path) if path else default_profile_path()
     prof = None

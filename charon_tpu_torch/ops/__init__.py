@@ -7,5 +7,8 @@
   curve.py        G1/G2 complete projective point ops
   msm.py          Pippenger and Straus multi-scalar multiplication
   pairing.py      Miller loop, final exponentiation, batched verify checks
-  blsops.py       BlsEngine: verify, threshold-aggregate, aggregate
+  decompress.py   batched G1/G2 point decompression and subgroup checks
+  sswu.py         batched hash-to-curve (SSWU, isogeny, cofactor clearing)
+  blsops.py       BlsEngine: verify, threshold-aggregate, aggregate, decode;
+                  the registry of program families
 """

@@ -12,11 +12,19 @@ same padded shapes.
 
 Identity encoding: affine (0, 0) lanes are group identities throughout
 (safe on these curves since b != 0 means y = 0 never occurs).
+
+Program families: every device program the engine runs is registered by
+name (`kernel_families()`, with the slot plane's `mesh/*` programs once
+`parallel.mesh.register_analysis_families()` ran), each with a function
+that packs canonical inputs on the bucket ladder into a launchable spec.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import random
+from typing import Callable
 
 import numpy as np
 import torch
@@ -103,6 +111,18 @@ def threshold_recombine(ctx: ModCtx, fr_ctx: ModCtx, t: int, sig_affine, idx):
     else:
         total = C.point_sum(f, C.point_scalar_mul(f, fr_ctx, proj, coeffs), axis=-1)
     return C.point_to_affine(f, total)
+
+
+def sum_affine(f, affine, axis: int = -1):
+    """Affine points summed over `axis` (a fold of complete adds), affine
+    out: the aggregate family."""
+    return C.point_to_affine(f, C.point_sum(f, C.affine_to_point(f, affine), axis=axis))
+
+
+def subgroup_mask(f, fr_ctx: ModCtx, affine, order):
+    """[r]P == identity lane by lane, `order` the raw (unreduced) group
+    order as the ladder schedule: the subgroup_g1/g2 families."""
+    return C.point_is_identity(f, C.point_scalar_mul(f, fr_ctx, C.affine_to_point(f, affine), order))
 
 
 def _grid(point, rows: int, cols: int):
@@ -254,8 +274,7 @@ class BlsEngine:
             flat.extend(g)
             flat.extend([None] * (k - len(g)))
         flat.extend([None] * ((pad - v) * k))
-        proj = C.affine_to_point(f, _grid(pack(flat), pad, k))
-        return unpack(self.ctx, C.point_to_affine(f, C.point_sum(f, proj, axis=-1)))[:v]
+        return unpack(self.ctx, sum_affine(f, _grid(pack(flat), pad, k)))[:v]
 
     @torch.inference_mode()
     def aggregate_sigs_batch(self, groups: list[list]) -> list:
@@ -279,11 +298,8 @@ class BlsEngine:
         if n == 0:
             return []
         pad = next_pow2(n)
-        proj = C.affine_to_point(f, pack(list(points) + [None] * (pad - n)))
-        # raw (unreduced!) group order as the ladder schedule
         order = self._fr([self.fr_ctx.modulus] * pad)
-        rp = C.point_scalar_mul(f, self.fr_ctx, proj, order)
-        return C.point_is_identity(f, rp).cpu().tolist()[:n]
+        return subgroup_mask(f, self.fr_ctx, pack(list(points) + [None] * (pad - n)), order).cpu().tolist()[:n]
 
     @torch.inference_mode()
     def subgroup_check_g2_batch(self, points) -> list[bool]:
@@ -348,3 +364,139 @@ class BlsEngine:
         u00, u01, u10, u11, s0, s1 = SSWU.pack_hashed(self.ctx, self._padded(lanes), self.device)
         aff, valid = SSWU.hash_to_g2_graph(self.ctx, (u00, u01), (u10, u11), s0, s1)
         return C.g2_unpack(self.ctx, aff)[:n], valid.cpu().tolist()[:n]
+
+
+# ---------------------------------------------------------------------------
+# Program-family registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TraceSpec:
+    """One instantiation of a program family: the program (a plain function
+    on tensors), canonical inputs on a bucket-ladder shape, the limb
+    geometry, the padded lanes and the ladder multiple (the plane's shard
+    count; 1 for the engine)."""
+
+    fn: Callable
+    args: tuple
+    ctx: ModCtx
+    lanes: int
+    multiple: int = 1
+
+    def launch(self):
+        """Run the program once on its inputs, in inference mode."""
+        with torch.inference_mode():
+            return self.fn(*self.args)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelFamily:
+    """A registered device-program family. `build(device=None)` returns its
+    TraceSpec with inputs on `device` (None: the card). `sentinel` marks
+    the families cheap enough to launch on every check."""
+
+    name: str
+    build: Callable[..., TraceSpec]
+    sentinel: bool = False
+
+
+_KERNEL_FAMILIES: dict[str, KernelFamily] = {}
+
+
+def register_kernel_family(name: str, build: Callable[..., TraceSpec], sentinel: bool = False) -> None:
+    if name in _KERNEL_FAMILIES:
+        raise ValueError(f"kernel family {name!r} already registered")
+    _KERNEL_FAMILIES[name] = KernelFamily(name, build, sentinel)
+
+
+def kernel_families() -> dict[str, KernelFamily]:
+    """Snapshot of the registry: the engine families at import, the slot
+    plane's after parallel.mesh.register_analysis_families()."""
+    return dict(_KERNEL_FAMILIES)
+
+
+def _register_engine_families() -> None:
+    """The engine's programs, under the JAX package's names, on canonical
+    generator-point inputs: 4 lanes (the ladder floor), t = 3. The DKG
+    families (g1_gen_mul, commitment_eval, g1_msm, ...) come with the DKG
+    port."""
+    from charon_tpu_torch.crypto.g1g2 import G1_GEN, G2_GEN, g1_to_bytes, g2_to_bytes
+
+    n, t = 4, 3
+    ctx, fr_ctx = limb.FP, limb.FR
+    g1f, g2f = C.g1_ops(ctx), C.g2_ops(ctx)
+
+    def spec(fn, args):
+        return TraceSpec(fn, args, ctx, n)
+
+    def g1(dev, k=n):
+        return C.g1_pack(ctx, [G1_GEN] * k, dev)
+
+    def g2(dev, k=n):
+        return C.g2_pack(ctx, [G2_GEN] * k, dev)
+
+    def fr(dev, values):
+        return limb.to_device(limb.ctx_pack(fr_ctx, values), dev)
+
+    def grid(pt, cols):
+        return map_point(lambda a: torch.stack([a] * cols, 1), pt)
+
+    def order(dev):
+        return fr(dev, [fr_ctx.modulus] * n)
+
+    def idx(dev):
+        return torch.arange(1, t + 1, device=dev).repeat(n, 1)
+
+    def dec_g2(x0, x1, sign, inf, ok):
+        return DEC.decompress_g2_graph(ctx, (x0, x1), sign, inf, ok)
+
+    def dec_g1(x0, sign, inf, ok):
+        return DEC.decompress_g1_graph(ctx, x0, sign, inf, ok)
+
+    def h2c(u00, u01, u10, u11, s0, s1):
+        return SSWU.hash_to_g2_graph(ctx, (u00, u01), (u10, u11), s0, s1)
+
+    families = {
+        "verify": (lambda d: spec(functools.partial(DP.batched_verify, ctx), (g1(d), g2(d), g2(d))), False),
+        "verify_rlc": (
+            lambda d: spec(
+                functools.partial(DP.batched_verify_rlc, ctx, fr_ctx), (g1(d), g2(d), g2(d), fr(d, [1] * n))
+            ),
+            False,
+        ),
+        "verify_grouped_rlc": (
+            lambda d: spec(
+                functools.partial(DP.batched_verify_grouped_rlc, ctx, fr_ctx),
+                (grid(g1(d), n), g2(d), grid(g2(d), n), fr(d, [1] * (n * n)).reshape(n, n, -1)),
+            ),
+            False,
+        ),
+        "threshold_agg": (
+            lambda d: spec(functools.partial(threshold_recombine, ctx, fr_ctx, t), (grid(g2(d), t), idx(d))),
+            False,
+        ),
+        "hash_to_g2": (
+            lambda d: spec(h2c, SSWU.pack_hashed(ctx, [SSWU.hash_to_field_lane(b"family-check")] * n, d)),
+            False,
+        ),
+        "aggregate": (lambda d: spec(functools.partial(sum_affine, g2f), (grid(g2(d), t),)), True),
+        "g1_sum": (lambda d: spec(functools.partial(sum_affine, g1f), (grid(g1(d), t),)), True),
+        "subgroup_g2": (lambda d: spec(functools.partial(subgroup_mask, g2f, fr_ctx), (g2(d), order(d))), True),
+        "subgroup_g1": (lambda d: spec(functools.partial(subgroup_mask, g1f, fr_ctx), (g1(d), order(d))), True),
+        "decompress_g2": (
+            lambda d: spec(dec_g2, DEC.pack_parsed_g2(ctx, [DEC.parse_g2_lane(g2_to_bytes(G2_GEN))] * n, d)),
+            True,
+        ),
+        "decompress_g1": (
+            lambda d: spec(dec_g1, DEC.pack_parsed_g1(ctx, [DEC.parse_g1_lane(g1_to_bytes(G1_GEN))] * n, d)),
+            True,
+        ),
+    }
+    for fname, (build, sentinel) in families.items():
+        register_kernel_family(
+            f"blsops/{fname}", lambda device=None, build=build: build(_resolve_device(device)), sentinel
+        )
+
+
+_register_engine_families()

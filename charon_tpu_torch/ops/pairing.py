@@ -282,7 +282,7 @@ def _fp12_prod_tree(ctx: ModCtx, f):
     return map_point(lambda x: x[0], f)
 
 
-def _point_sum_tree(f, pts, n: int, axis: int = 0):
+def point_sum_tree(f, pts, n: int, axis: int = 0):
     """Log-depth pairwise sum of projective points over `axis` (padded to a
     power of two with identities; complete adds are identity-safe)."""
     pow2 = 1 << (n - 1).bit_length()
@@ -336,10 +336,10 @@ def batched_verify_grouped_rlc(ctx: ModCtx, fr_ctx: ModCtx, pk, msg, sig, rand, 
 
         def regroup(t, f):
             t = map_point(lambda a: a.reshape(m_groups, k, *a.shape[1:]), t)
-            return _point_sum_tree(f, t, k, axis=1)
+            return point_sum_tree(f, t, k, axis=1)
 
         buckets = regroup(pk_r, g1f)
-        s_total = _point_sum_tree(g2f, regroup(sig_r, g2f), m_groups)
+        s_total = point_sum_tree(g2f, regroup(sig_r, g2f), m_groups)
     return grouped_rlc_check(ctx, buckets, msg, s_total)
 
 

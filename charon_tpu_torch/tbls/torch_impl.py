@@ -363,6 +363,7 @@ def warm_point_caches(
     impl: TorchImpl,
     pubkeys: Sequence[bytes] = (),
     messages: Sequence[bytes] = (),
+    engine=None,
     device: bool | None = None,
     chunk: int = WARMUP_CHUNK,
 ) -> dict:
@@ -370,9 +371,10 @@ def warm_point_caches(
     boot with its cluster's key set.
 
     With `device` (None: as impl's decode_mode resolves), pubkeys decode
-    through decompress_g1_batch (GLV subgroup check) and messages through
-    hash_to_g2_batch, `chunk` lanes a program; without, each decodes on
-    the host. Lanes are unique keys not yet cached, at most each cache's
+    through `engine`'s decompress_g1_batch (GLV subgroup check) and
+    messages through its hash_to_g2_batch, `chunk` lanes a program (None:
+    impl's own engine; the slot coalescer passes an adapter over the
+    plane's warm-up programs); without, each decodes on the host. Lanes are unique keys not yet cached, at most each cache's
     capacity (the last ones; the rest count as `overflow`). Invalid lanes
     are not inserted: the on-demand decode raises their precise error when
     a key is used. A device error propagates: there is no step-down to the
@@ -383,7 +385,7 @@ def warm_point_caches(
     t0 = time.monotonic()
     if device is None:
         device = impl._device_decode()
-    eng = impl.engine
+    eng = engine or impl.engine
     stats = {name: {"device": 0, "python": 0, "cached": 0, "invalid": 0} for name in ("pubkey", "message")}
 
     def work(keys, cache, bulk, single, name):

@@ -48,10 +48,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      warm-up and the duty again — K1-K3 must launch, K4-K6 never;
   7. a torch.profiler trace of four main-path loop bodies under each
      configuration (kernel time, idle share, top kernels);
-  8. every kernel timed at the four row counts its duty launched it at
+  8. the slot crypto plane (parallel/mesh.SlotCryptoPlane on the card)
+     under its coalescer (core/cryptoplane.SlotCoalescer, the device
+     decode): the boot warm-up through the plane's g1dec and h2c programs,
+     prewarm, then the 1k-validator slot coalesced (every partial as 8
+     verify calls and every validator as 2 recombine duties, t = 4) into
+     ONE flush of verify_rlc_dec and step_rlc_dec, every verdict True and
+     each group signature's bytes equal to phase 6's; a forged partial
+     attributed (step_dec, verify_dec) and the point-input programs
+     (step_rlc, step, verify_rlc, verify) on 64 validators; a 64-validator
+     flush under the int8 configuration. All ten programs must run, each
+     part launching its configuration's kernels only; each flush's stats
+     and each program's walls and lanes;
+  9. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
      during phases 5-6), each beside its bound;
-  9. the kernels JSON line, then the result line.
+ 10. the kernels JSON line (with each kernel's launches in the full-width
+     plane slot, or in the int8 plane flush for K4-K6), then the result
+     line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -328,7 +342,7 @@ def check_kernels(seed: int) -> dict:
 
 
 def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
-    """Phase 8: each kernel's time (C entry point alone, CUDA events over
+    """Phase 9: each kernel's time (C entry point alone, CUDA events over
     200 queued launches) at the DUTY_SHAPES row counts its duty launched it at
     most often, beside the bound. The operands stay in L2 across the
     launches, as on the duty, where each kernel's operands were written by
@@ -660,7 +674,8 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple, de
     """The duty of validators `vals` through a fresh TorchImpl on the card,
     under the configuration already applied, after the boot warm-up of its
     caches; returns (stage timings, launches per kernel, launches per row
-    count per kernel, the impl, the threshold batch). Every kernel in
+    count per kernel, the impl, the threshold batch, the group signatures'
+    bytes). Every kernel in
     `launched` must launch during the duty, and none in `idle`. With the
     device decode (decode_mode "auto" on the card) decompress_g2_batch must
     run and neither the [r]P subgroup check nor the host sig_to_point."""
@@ -746,7 +761,7 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple, de
             f"{covered:.3f} of its launches): " + ", ".join(f"{r} x{n}" for r, n in top[:8]))
     log(f"stage times {label} (s):", json.dumps(timings))
     _check_launches(launches, f"duty {label}", launched, idle)
-    return timings, launches, rows, impl, batch
+    return timings, launches, rows, impl, batch, group_sigs
 
 
 def profile_device(impl, batch, label: str) -> None:
@@ -816,6 +831,215 @@ def profile_device(impl, batch, label: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the slot crypto plane and its coalescer
+# ---------------------------------------------------------------------------
+
+PLANE_VERIFY_CALLS = 8
+PLANE_SMALL = 64  # validators of the attribution, point-input and int8 flushes
+
+
+def _rows(vals: list):
+    """recombine() arguments of validators `vals`: pubshares, roots,
+    partials, group pubkeys and indices, signers in index order."""
+    idx = [sorted(v[3]) for v in vals]
+    return (
+        [[v[2][i] for i in ix] for v, ix in zip(vals, idx)],
+        [v[1] for v in vals],
+        [[v[3][i] for i in ix] for v, ix in zip(vals, idx)],
+        [v[0] for v in vals],
+        idx,
+    )
+
+
+def _verify_lanes(vals: list) -> list:
+    return [(v[2][i], v[1], v[3][i]) for v in vals for i in sorted(v[3])]
+
+
+def _forged(vals: list, seed: int):
+    """(lanes, rows, forged lane, forged row) of validators `vals` with one
+    partial forged: validator r's first signer signs another duty's
+    message, in its verify lane and in its recombine row."""
+    from charon_tpu_torch.crypto import bls, g1g2
+
+    r = random.Random(f"plane/{seed}").randrange(len(vals))
+    bad = g1g2.g2_to_bytes(bls.sign(vals[r][4], duty_message(r + 1)))
+    lanes = _verify_lanes(vals)
+    k = 4 * r  # the first signer's lane of validator r
+    lanes[k] = (lanes[k][0], lanes[k][1], bad)
+    rows = _rows(vals)
+    rows[2][r] = [bad, *rows[2][r][1:]]
+    return lanes, rows, k, r
+
+
+def _flush(coal, verify_calls: list, recombine_calls: list, walls: dict, label: str) -> tuple:
+    """One concurrent burst of verify and recombine submissions through the
+    coalescer: (verify results, recombine results, flush wall s, launches,
+    families dispatched). The counts are set to 0 just before and read
+    just after."""
+    import asyncio
+
+    import torch
+
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    async def burst():
+        return await asyncio.gather(
+            *(coal.verify(lanes) for lanes in verify_calls), *(coal.recombine(*rows) for rows in recombine_calls)
+        )
+
+    walls.clear()
+    flushes = coal.flushes
+    MK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = asyncio.run(burst())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(MK.LAUNCHES)
+    fams = sorted(fam for fam, runs in walls.items() for _ in runs)
+    if coal.flushes - flushes != 1:
+        raise AssertionError(f"plane {label}: {coal.flushes - flushes} flushes, want one")
+    log(f"plane {label}: one flush in {wall:.3f} s; programs " + "; ".join(
+        f"{fam} {s:.3f} s over {n} lanes" for fam, runs in sorted(walls.items()) for s, n in runs
+    ))
+    log(f"plane {label} launches:", json.dumps(launches))
+    return out[: len(verify_calls)], out[len(verify_calls) :], wall, launches, fams
+
+
+def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
+    """The slot crypto plane (parallel/mesh.SlotCryptoPlane, one card) under
+    its coalescer (core/cryptoplane.SlotCoalescer, decode_mode "auto", i.e.
+    the device decode), under the default configuration: the boot warm-up
+    through the plane's g1dec and h2c programs, prewarm, the coalesced slot
+    at full width (every partial as PLANE_VERIFY_CALLS verify calls, every
+    validator as two recombine duties, ONE flush: verify_rlc_dec and
+    step_rlc_dec, every verdict True, each group signature's bytes those of
+    the duty's threshold_aggregate_batch), forged attribution (step_dec,
+    verify_dec), the point-input programs through a decode_mode "python"
+    coalescer (step_rlc, step, verify_rlc, verify), then a flush under the
+    int8 configuration. All ten programs must run; each part launches its
+    configuration's kernels and none of the other's. Returns the full-width
+    slot's launches (default kernels) and the int8 flush's (int8 ones)."""
+    import asyncio
+    import dataclasses
+
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.core.cryptoplane import SlotCoalescer
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.parallel import SlotCryptoPlane
+    from charon_tpu_torch.parallel import mesh as M
+    from charon_tpu_torch.tbls.torch_impl import TorchImpl
+
+    n = len(vals)
+    plane = SlotCryptoPlane(None, t=4)
+    walls: dict = {}
+    ran: set = set()
+
+    def on_program(fam, seconds, lanes):
+        walls.setdefault(fam, []).append((seconds, lanes))
+        ran.add(fam)
+
+    plane.on_program = on_program
+    stats: list = []
+    coal = SlotCoalescer(plane, impl=TorchImpl(), stats_hook=stats.append)
+    try:
+        # the boot warm-up, through the plane's warm-up programs
+        pubkeys = [v[0] for v in vals] + [pk for v in vals for pk in v[2].values()]
+        messages = [v[1] for v in vals]
+        MK.reset_launches()
+        warm = stage("plane_warm_up", lambda: asyncio.run(coal.warm_caches(pubkeys, messages)), {})
+        for name, keys in (("pubkey", pubkeys), ("message", messages)):
+            want = {"device": len(set(keys)), "python": 0, "cached": 0, "invalid": 0}
+            if warm[name] != want:
+                raise AssertionError(f"plane warm-up: {name} lanes {warm[name]}, want {want}")
+        log("plane warm-up:", json.dumps(warm), "programs", json.dumps(
+            {fam: [len(runs), sum(s for s, _ in runs), sum(k for _, k in runs)] for fam, runs in walls.items()}
+        ))
+        _check_launches(dict(MK.LAUNCHES), "plane warm-up", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
+
+        report = stage("plane_prewarm", lambda: asyncio.run(coal.prewarm()), {})
+        log("plane prewarm (kind, bucket lanes, s):", json.dumps(report))
+
+        # the coalesced slot at full width
+        lanes = _verify_lanes(vals)
+        per = -(-len(lanes) // PLANE_VERIFY_CALLS)
+        calls = [lanes[i : i + per] for i in range(0, len(lanes), per)]
+        duties = [_rows(vals[: n // 2]), _rows(vals[n // 2 :])]
+        stats.clear()
+        vres, rres, slot_wall, slot_launches, fams = _flush(coal, calls, duties, walls, "slot")
+        if fams != ["mesh/step_rlc_dec", "mesh/verify_rlc_dec"]:
+            raise AssertionError(f"plane slot: programs {fams}")
+        if not all(all(r) for r in vres) or not all(all(ok) for _, ok in rres):
+            raise AssertionError("plane slot: a verdict is False")
+        sigs = [s for r_sigs, _ in rres for s in r_sigs]
+        if sigs != duty_sigs:
+            bad = [v for v in range(n) if sigs[v] != duty_sigs[v]]
+            raise AssertionError(f"plane slot: group signatures of validators {bad[:8]} differ from the duty's")
+        [slot_stats] = stats
+        if slot_stats.decode_mode != "device" or slot_stats.lanes != len(lanes) + n:
+            raise AssertionError(f"plane slot: {slot_stats}")
+        log(f"plane slot: {len(calls)} verify calls ({len(lanes)} lanes) and {len(duties)} recombine duties "
+            f"({n} validators) in one flush, every verdict True, {n} group signatures equal to the duty's")
+        _check_launches(slot_launches, "plane slot", DEFAULT_KERNELS, INT8_KERNELS)
+
+        # attribution: one forged partial in a verify lane and a recombine row
+        small = vals[:PLANE_SMALL]
+        f_lanes, f_rows, k, r = _forged(small, seed)
+        vres, rres, _, launches, fams = _flush(coal, [f_lanes], [f_rows], walls, "attribution")
+        if fams != ["mesh/step_dec", "mesh/step_rlc_dec", "mesh/verify_dec", "mesh/verify_rlc_dec"]:
+            raise AssertionError(f"plane attribution: programs {fams}")
+        if [i for i, ok in enumerate(vres[0]) if not ok] != [k]:
+            raise AssertionError(f"plane attribution: False lanes {[i for i, ok in enumerate(vres[0]) if not ok]}, want [{k}]")
+        [(a_sigs, a_oks)] = rres
+        if [i for i, ok in enumerate(a_oks) if not ok] != [r]:
+            raise AssertionError(f"plane attribution: False rows {[i for i, ok in enumerate(a_oks) if not ok]}, want [{r}]")
+        if any(a_sigs[v] != duty_sigs[v] for v in range(len(small)) if v != r):
+            raise AssertionError("plane attribution: a valid row's group signature differs from the duty's")
+        _check_launches(launches, "plane attribution", DEFAULT_KERNELS, INT8_KERNELS)
+
+        # the point-input programs: the host decode of the signatures
+        host = SlotCoalescer(plane, impl=coal.impl, decode_mode="python", stats_hook=stats.append)
+        try:
+            vres, rres, _, launches, fams = _flush(host, [f_lanes], [f_rows], walls, "point inputs")
+        finally:
+            host.close()
+        if fams != ["mesh/step", "mesh/step_rlc", "mesh/verify", "mesh/verify_rlc"]:
+            raise AssertionError(f"plane point inputs: programs {fams}")
+        if [i for i, ok in enumerate(vres[0]) if not ok] != [k] or [i for i, ok in enumerate(rres[0][1]) if not ok] != [r]:
+            raise AssertionError("plane point inputs: the forged lane and row were not the only False ones")
+        if rres[0][0] != a_sigs:
+            raise AssertionError("plane point inputs: group signatures differ from the decode-fused programs'")
+        _check_launches(launches, "plane point inputs", DEFAULT_KERNELS, INT8_KERNELS)
+
+        # the int8 configuration
+        KernelConfig(mxu_mont=True).apply()
+        try:
+            vres, rres, _, int8_launches, fams = _flush(
+                coal, [_verify_lanes(small)], [_rows(small)], walls, "int8"
+            )
+        finally:
+            KernelConfig().apply()
+        if fams != ["mesh/step_rlc_dec", "mesh/verify_rlc_dec"] or not all(vres[0]) or not all(rres[0][1]):
+            raise AssertionError(f"plane int8: programs {fams} or a False verdict")
+        if rres[0][0] != duty_sigs[: len(small)]:
+            raise AssertionError("plane int8: group signatures differ from the duty's")
+        _check_launches(int8_launches, "plane int8", INT8_KERNELS, DEFAULT_KERNELS)
+
+        if ran != {f"mesh/{name}" for name in M.FAMILIES}:
+            raise AssertionError(f"plane: programs that never ran: {sorted({f'mesh/{x}' for x in M.FAMILIES} - ran)}")
+        for st in stats:
+            log("plane flush stats:", json.dumps({
+                k: v for k, v in dataclasses.asdict(st).items() if k not in ("decode_spans", "parents", "decode_queue_seconds")
+            }))
+        log(f"plane: all {len(ran)} programs ran; flushes {coal.flushes}, coalesced {coal.coalesced_flushes}, "
+            f"lanes {coal.lanes_flushed}, padding lanes {coal.pad_lanes_flushed}, failed {coal.failed_flushes}")
+    finally:
+        coal.close()
+        MK.reset_launches()
+    return {name: (int8_launches if name in INT8_KERNELS else slot_launches)[name] for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -864,14 +1088,17 @@ def main(argv=None) -> int:
 
     engine = BlsEngine()
     run_decode_batteries(engine, batteries, "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
-    _, int8_launches, int8_rows, impl, batch = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
+    _, int8_launches, int8_rows, impl, batch, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
     profile_device(impl, batch, "int8")
     if args.python_decode:
         run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
     KernelConfig().apply()
     run_decode_batteries(engine, batteries, "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
-    _, default_launches, default_rows, _, _ = run_duty(vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS)
+    _, default_launches, default_rows, _, _, duty_sigs = run_duty(
+        vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
+    )
     profile_device(impl, batch, "default")
+    plane_launches = run_plane(vals, duty_sigs, args.seed)
     duty_rows = {name: (int8_rows if name in INT8_KERNELS else default_rows)[name] for name in KERNELS}
     time_duty_shapes(results, duty_rows, args.seed)
 
@@ -881,7 +1108,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"charon_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[name], **results[name], "library_ms": None,
-            "status": "ported",
+            "plane_launches": plane_launches[name], "status": "ported",
         })
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(json.dumps({

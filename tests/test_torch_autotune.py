@@ -20,6 +20,7 @@ import torch
 
 from charon_tpu_torch.core import autotune
 from charon_tpu_torch.core.autotune import KernelConfig, PlaneConfigError
+from charon_tpu_torch.core.cryptoplane import kernel_inventory
 from charon_tpu_torch.ops import limb as L
 from charon_tpu_torch.ops import mont_kernels as MK
 from charon_tpu_torch.ops import msm as MSM
@@ -107,7 +108,8 @@ def test_cold_tune_persists_then_pure_hit(tmp_path):
     assert events_of(log) == ["miss", "rebuilt"]
     prof = autotune.load_profile(path)
     assert prof["platform"] == "cpu" and prof["torch_version"] == torch.__version__
-    assert prof["families"] == [] and prof["sources"]["fp2_fusion"] == "inapplicable"
+    assert prof["families"] == sorted(kernel_inventory("cpu")) and prof["sources"]["fp2_fusion"] == "inapplicable"
+    assert {"blsops/verify_grouped_rlc", "mesh/step_rlc_dec", "mesh/g1dec"} <= set(prof["families"])
 
     def explode(**kw):  # a hit must not micro-bench
         raise AssertionError("bench ran on a warm boot")

@@ -198,3 +198,52 @@ def test_torch_impl_on_card_matches_host_oracle(card, mxu_mont):
     assert got == want
     used = {k for k, n in MK.LAUNCHES.items() if n}
     assert used == {k for k in KERNELS if ("_mxu" in k) == mxu_mont}
+
+
+def test_slot_plane_on_card_equals_the_cpu_plane(card):
+    """All ten programs of the slot crypto plane on cuda:0 against the same
+    plane on the CPU, for a 4-validator 3-of-4 workload with a forged
+    partial: recombine and verify (RLC, then per-lane attribution), their
+    decode-fused twins on parsed signatures, and the two warm-up programs.
+    Points and verdicts equal, the same programs in the same order."""
+    from charon_tpu_torch.crypto import bls, h2c
+    from charon_tpu_torch.ops import decompress as DEC
+    from charon_tpu_torch.parallel import SlotCryptoPlane, make_mesh
+
+    t, v = 3, 4
+    ps, msgs, parts, gpks, idx = [], [], [], [], []
+    for i in range(v):
+        rng = random.Random(1000 + i)
+        sk = bls.keygen(bytes([i + 1]) * 32)
+        shares = shamir.split(sk, t + 1, t, rand=lambda: rng.randrange(1, shamir.R))
+        signers = sorted(shares)[:t]
+        ps.append([bls.sk_to_pk(shares[j]) for j in signers])
+        parts.append([bls.sign(shares[j], b"plane-duty-%d" % i) for j in signers])
+        msgs.append(h2c.hash_to_g2(b"plane-duty-%d" % i))
+        gpks.append(bls.sk_to_pk(sk))
+        idx.append(signers)
+    parts[1][1] = bls.sign(bls.keygen(b"\x77" * 32), b"wrong message")
+    lanes = ([ps[i][j] for i in range(v) for j in range(t)], [m for m in msgs for _ in range(t)], [s for r in parts for s in r])
+    parsed = [[DEC.parse_g2_lane(g1g2.g2_to_bytes(s)) for s in r] for r in parts]
+
+    def run(pl):
+        fams = []
+        pl.on_program = lambda fam, seconds, n: fams.append(fam)
+        out = [
+            pl.recombine_host(ps, msgs, parts, gpks, idx),
+            pl.verify_host(*lanes),
+            pl.recombine_packed_parsed(pl.pack_inputs_parsed(ps, msgs, parsed, gpks, idx), pl.make_rand(v), v),
+            pl.verify_packed_parsed(
+                pl.pack_verify_inputs_parsed(*lanes[:2], [p for r in parsed for p in r]), pl.make_lane_rand(v * t), v * t
+            ),
+            pl.hash_to_g2_host([b"plane-duty-0", b"plane-duty-3"]),
+            pl.decompress_g1_host([g1g2.g1_to_bytes(g) for g in gpks]),
+        ]
+        return out, fams
+
+    on_card, card_fams = run(SlotCryptoPlane(make_mesh(["cuda:0"]), t=t))
+    on_cpu, cpu_fams = run(SlotCryptoPlane(make_mesh(["cpu"]), t=t))
+    assert on_card == on_cpu and card_fams == cpu_fams and len(set(card_fams)) == 10
+    assert on_card[0][1] == on_card[2][1] == [True, False, True, True]
+    assert on_card[1] == on_card[3] == [k != 4 for k in range(v * t)]
+    assert on_card[4] == ([msgs[0], msgs[3]], [True, True]) and on_card[5] == (gpks, [True] * v)
