@@ -7,7 +7,8 @@ reference: `crypto/` (host copies of the pure-Python BLS12-381 modules),
 `ops/` (the batched engine, kernels K1-K6 in `ops/mont_kernels.py`),
 `csrc/` (their CUDA sources), `parallel/` (the slot crypto plane),
 `core/` (kernel routing, the startup tuner and the plane's coalescer),
-`tbls/` (the `TorchImpl` backend), and `convert.py` (limb arrays between
+`tbls/` (the `TorchImpl` backend), `dkg/` (the FROST and resharing
+ceremonies), and `convert.py` (limb arrays between
 the two packages' layouts). Entry points
 run on the CUDA card unless the caller passes device="cpu".
 """

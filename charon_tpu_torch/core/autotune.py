@@ -5,8 +5,9 @@ The port of charon_tpu/core/autotune.py.
 
   * `KernelConfig` is the one source of truth for kernel routing.
     `apply()` pushes it into the port's call-time dispatch flags
-    (`ops/msm.set_msm`, `ops/limb.set_mxu`). The port routes at call time,
-    so a flip takes effect on the next call; there are no compiled-kernel
+    (`ops/msm.set_msm`, `set_ceremony_straus`, `set_ceremony_window`,
+    `ops/limb.set_mxu`). The port routes at call time, so a flip takes
+    effect on the next call; there are no compiled-kernel
     caches to drop. An axis the port has no route for yet accepts only its
     default, and `apply()` raises `UnroutableConfigError` for any other
     value. The `CHARON_MSM` / `CHARON_MXU_MONT` deploy pins fold in as
@@ -130,8 +131,8 @@ class KernelConfig:
     mxu_mont: bool = False  # int8 tensor-core Montgomery products (K4-K6)
     fp2_fusion: bool = True  # fused Fp2 kernels (the port's one Fp2 path)
     pallas: bool | None = None  # hand-written kernels (the port's one path)
-    ceremony_straus: bool = True  # DKG commitment eval (not ported yet)
-    ceremony_msm_w8: bool = True  # DKG Pippenger window (not ported yet)
+    ceremony_straus: bool = True  # Straus vs per-lane in commitment eval
+    ceremony_msm_w8: bool = True  # Pippenger window 8 (else 4) in g1_msm
 
     # the axes resolve()/micro_bench() may tune (bool-valued)
     TUNABLE = (
@@ -145,8 +146,8 @@ class KernelConfig:
     ROUTABLE = {
         "fp2_fusion": (True,),
         "pallas": (None, True),
-        "ceremony_straus": (True,),
-        "ceremony_msm_w8": (True,),
+        "ceremony_straus": (True, False),
+        "ceremony_msm_w8": (True, False),
     }
 
     def apply(self) -> bool:
@@ -161,6 +162,8 @@ class KernelConfig:
         from charon_tpu_torch.ops import msm as MSM
 
         MSM.set_msm(self.msm)
+        MSM.set_ceremony_straus(self.ceremony_straus)
+        MSM.set_ceremony_window(8 if self.ceremony_msm_w8 else 4)
         limb.set_mxu(self.mxu_mont)
         return True
 
@@ -272,6 +275,46 @@ def _ladder_step_builder(lanes: int, device: torch.device) -> Callable[[], None]
     return run
 
 
+def _ceremony_eval_builder(lanes: int, device: torch.device, t: int = 3) -> Callable[[], None]:
+    """DKG commitment-polynomial evaluation wave: the program the
+    ceremony_straus axis routes (blsops.commitment_eval: Straus joint
+    windowed mul vs per-lane double-and-add and a fold)."""
+    from charon_tpu_torch.crypto.g1g2 import G1_GEN
+    from charon_tpu_torch.ops import blsops, limb
+    from charon_tpu_torch.ops import curve as C
+
+    n = blsops.bucket_lanes(lanes)
+    commits = C.map_point(lambda a: a.reshape(n, t, -1), C.g1_pack(limb.FP, [G1_GEN] * (n * t), device))
+    xs = torch.arange(1, n + 1, device=device)
+
+    def run() -> None:
+        with torch.inference_mode():
+            blsops.commitment_eval(limb.FP, limb.FR, 1, t, 32, commits, xs)
+        _sync(device)
+
+    return run
+
+
+def _ceremony_msm_builder(lanes: int, device: torch.device) -> Callable[[], None]:
+    """Segmented G1 MSM burst: the program whose Pippenger window the
+    ceremony_msm_w8 axis sizes (blsops.g1_msm, window 8 vs 4)."""
+    from charon_tpu_torch.crypto.g1g2 import G1_GEN
+    from charon_tpu_torch.ops import blsops, limb
+    from charon_tpu_torch.ops import curve as C
+
+    n = blsops.bucket_lanes(lanes)
+    pts = C.g1_pack(limb.FP, [G1_GEN] * n, device)
+    scalars = limb.to_device(limb.ctx_pack(limb.FR, [i + 1 for i in range(n)]), device)
+    seg = torch.zeros(n, dtype=torch.int64, device=device)
+
+    def run() -> None:
+        with torch.inference_mode():
+            blsops.g1_msm(limb.FP, limb.FR, 1, 255, pts, scalars, seg)
+        _sync(device)
+
+    return run
+
+
 def _no_route(lanes: int, device: torch.device) -> Callable[[], None]:
     raise PlaneConfigError("the port has no kernel route for this axis yet")
 
@@ -309,8 +352,7 @@ register_candidate(Candidate(
     applicable=_always,
     builder=_ladder_step_builder,
 ))
-# Axes with no route in the port yet: the unfused Fp2 path was not ported,
-# and the DKG ceremony kernels are ROADMAP item 10.
+# The unfused Fp2 path was not ported: the axis has no route.
 register_candidate(Candidate(
     field="fp2_fusion",
     doc="fused Fp2 kernels: the port's one Fp2 path",
@@ -319,15 +361,15 @@ register_candidate(Candidate(
 ))
 register_candidate(Candidate(
     field="ceremony_straus",
-    doc="Straus joint mul vs per-lane in DKG commitment eval (not ported)",
-    applicable=_never,
-    builder=_no_route,
+    doc="Straus joint mul vs per-lane in DKG commitment eval",
+    applicable=_always,
+    builder=_ceremony_eval_builder,
 ))
 register_candidate(Candidate(
     field="ceremony_msm_w8",
-    doc="Pippenger window 8 vs 4 in the ceremony G1 MSM (not ported)",
-    applicable=_never,
-    builder=_no_route,
+    doc="Pippenger window 8 vs 4 in the ceremony segmented G1 MSM",
+    applicable=_always,
+    builder=_ceremony_msm_builder,
 ))
 
 

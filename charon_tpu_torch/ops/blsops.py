@@ -1,7 +1,7 @@
 """User-facing batched BLS operations: verify, threshold-aggregate, aggregate,
-point decode and hash-to-curve.
+point decode, hash-to-curve, and the DKG and resharing ceremony calls.
 
-The port of the main-path subset of charon_tpu/ops/blsops.py. The engine
+The port of charon_tpu/ops/blsops.py. The engine
 takes whole [num_validators, threshold] / [num_sigs] batches and runs them
 on one device as batched tensor programs; the field multiplies inside go to
 the hand-written kernels K1-K6 on a CUDA device.
@@ -99,6 +99,47 @@ def lagrange_coeffs_at_zero(fr_ctx: ModCtx, idx, t: int):
     return limb.from_mont(fr_ctx, coeff)  # raw, for the bit schedule
 
 
+def lagrange_coeffs_at(fr_ctx: ModCtx, idx, t: int, xs):
+    """Batched Lagrange basis at arbitrary evaluation points, the
+    resharing generalization of lagrange_coeffs_at_zero:
+
+        coeff_j(x) = prod_{m != j} (x - x_m) / (x_j - x_m)   (mod r)
+
+    idx is (..., t) of distinct share indices, xs (...,) the evaluation
+    points, one a batch lane. Returns raw Fr limbs (..., t, n_limbs)."""
+    x_mont = limb.to_mont(fr_ctx, _indices_to_fr(fr_ctx, idx))  # (..., t, L)
+    e_mont = limb.to_mont(fr_ctx, _indices_to_fr(fr_ctx, xs))  # (..., L)
+    pts = [x_mont[..., j, :] for j in range(t)]
+    nums, dens = [], []
+    for j in range(t):
+        num = den = None
+        for m in range(t):
+            if m == j:
+                continue
+            nm = limb.sub_mod(fr_ctx, e_mont, pts[m])
+            num = nm if num is None else limb.mont_mul(fr_ctx, num, nm)
+            d = limb.sub_mod(fr_ctx, pts[j], pts[m])
+            den = d if den is None else limb.mont_mul(fr_ctx, den, d)
+        if num is None:  # t == 1
+            num = den = limb.const(fr_ctx, 1, pts[j].shape[:-1], idx.device)
+        nums.append(num)
+        dens.append(den)
+    num = torch.stack(torch.broadcast_tensors(*nums), dim=-2)  # (..., t, L)
+    den = torch.stack(torch.broadcast_tensors(*dens), dim=-2)
+    coeff = limb.mont_mul(fr_ctx, num, limb.inv_mod(fr_ctx, den))
+    return limb.from_mont(fr_ctx, coeff)
+
+
+def _mont_powers(fr_ctx: ModCtx, xs, t: int):
+    """Integer evaluation points (...,) -> Montgomery-form powers
+    x^0..x^(t-1), shape (..., t, n_limbs): t - 1 products."""
+    x = limb.to_mont(fr_ctx, _indices_to_fr(fr_ctx, xs))
+    pows = [limb.const(fr_ctx, 1, x.shape[:-1], xs.device)]
+    for _ in range(1, t):
+        pows.append(limb.mont_mul(fr_ctx, pows[-1], x))
+    return torch.stack(torch.broadcast_tensors(*pows), dim=-2)
+
+
 def threshold_recombine(ctx: ModCtx, fr_ctx: ModCtx, t: int, sig_affine, idx):
     """(V, t) affine G2 share sigs + (V, t) share indices -> [V] affine
     group signatures: Straus joint windowed mul (ops/msm.py) when MSM is on,
@@ -123,6 +164,79 @@ def subgroup_mask(f, fr_ctx: ModCtx, affine, order):
     """[r]P == identity lane by lane, `order` the raw (unreduced) group
     order as the ladder schedule: the subgroup_g1/g2 families."""
     return C.point_is_identity(f, C.point_scalar_mul(f, fr_ctx, C.affine_to_point(f, affine), order))
+
+
+# ---------------------------------------------------------------------------
+# Ceremony programs: DKG verification and key resharing
+# ---------------------------------------------------------------------------
+
+
+def scalar_mul_affine(f, fr_ctx: ModCtx, base_affine, scalars):
+    """[k_i] P_i lane by lane over a 255-bit double-and-add ladder, affine
+    in and out: the g1_scalar_mul and g2_scalar_mul families."""
+    return C.point_to_affine(f, C.point_scalar_mul(f, fr_ctx, C.affine_to_point(f, base_affine), scalars))
+
+
+@functools.lru_cache(maxsize=None)
+def _gen_table_g1(ctx: ModCtx, nbits: int, window: int, device: torch.device):
+    """Fixed-base window table of the G1 generator, affine limb tensors of
+    shape (n_win, 2^window, n_limbs): T[win][d] = d * 2^(window * win) * G,
+    built once on the host (public constants) and cached per device."""
+    from charon_tpu_torch.crypto.g1g2 import G1_GEN, g1_add
+
+    n_win = -(-nbits // window)
+    flat = []
+    base = G1_GEN
+    for _ in range(n_win):
+        entry = None
+        for _d in range(1 << window):
+            flat.append(entry)
+            entry = g1_add(entry, base)
+        for _ in range(window):
+            base = g1_add(base, base)
+    return map_point(lambda a: a.reshape(n_win, 1 << window, -1), C.g1_pack(ctx, flat, device))
+
+
+def g1_gen_mul(ctx: ModCtx, fr_ctx: ModCtx, scalars, nbits: int = 255, window: int = 4):
+    """[k_i] G for raw Fr scalars (N, n_limbs) through the fixed-base table:
+    one gathered complete add a window, no doublings. Affine out."""
+    f = C.g1_ops(ctx)
+    table = _gen_table_g1(ctx, nbits, window, scalars.device)
+    digits = MSM._digits(fr_ctx, scalars, nbits, window)  # (N, n_win)
+    acc = None
+    for w in range(digits.shape[-1]):
+        sel = C.affine_to_point(f, map_point(lambda a, w=w: a[w][digits[:, w]], table))
+        acc = sel if acc is None else C.point_add(f, acc, sel)
+    return C.point_to_affine(f, acc)
+
+
+def commitment_eval(ctx: ModCtx, fr_ctx: ModCtx, vecs: int, t: int, nbits: int, commit_affine, xs):
+    """Per lane: sum over `vecs` commitment vectors of sum_k C_k x^k, the
+    Feldman/FROST commitment-polynomial evaluation. commit_affine: affine
+    (N, vecs * t); xs: integer evaluation points (N,). The powers x^k are
+    built on the device; `msm.ceremony_straus_active()` picks Straus joint
+    windowed mul (one shared doubling chain a lane) or per-lane
+    double-and-add and a fold, over an nbits-bit schedule."""
+    f = C.g1_ops(ctx)
+    pows = limb.from_mont(fr_ctx, _mont_powers(fr_ctx, xs, t)).repeat(1, vecs, 1)  # (N, vecs * t, L)
+    proj = C.affine_to_point(f, commit_affine)
+    if MSM.ceremony_straus_active():
+        total = MSM.windowed_joint_mul(f, fr_ctx, proj, pows, nbits=nbits, window=4)
+    else:
+        total = C.point_sum(f, C.point_scalar_mul(f, fr_ctx, proj, pows, nbits=nbits), axis=-1)
+    return C.point_to_affine(f, total)
+
+
+def g1_msm(ctx: ModCtx, fr_ctx: ModCtx, n_segments: int, nbits: int, points_affine, scalars, segment_ids):
+    """Segmented G1 Pippenger MSM over full-width raw Fr scalars, the
+    reshare pubshare recombination; the window is the tuned ceremony axis
+    (`msm.ceremony_window()`). Affine (n_segments,) out."""
+    f = C.g1_ops(ctx)
+    proj = C.affine_to_point(f, points_affine)
+    out = MSM.msm_segmented(
+        f, fr_ctx, proj, scalars, segment_ids, n_segments, nbits=nbits, window=MSM.ceremony_window()
+    )
+    return C.point_to_affine(f, out)
 
 
 def _grid(point, rows: int, cols: int):
@@ -365,6 +479,149 @@ class BlsEngine:
         aff, valid = SSWU.hash_to_g2_graph(self.ctx, (u00, u01), (u10, u11), s0, s1)
         return C.g2_unpack(self.ctx, aff)[:n], valid.cpu().tolist()[:n]
 
+    # -- scalar multiplication (DKG / key derivation) --------------------
+
+    def _scalars(self, values):
+        return C.fr_pack(self.fr_ctx, values, self.device)
+
+    def _first(self, unpack, affine, n: int) -> list:
+        """The first n lanes of a padded affine result, as host points."""
+        return unpack(self.ctx, map_point(lambda a: a[:n], affine))
+
+    def _ints(self, values):
+        return torch.as_tensor(list(values), dtype=torch.int64, device=self.device)
+
+    @torch.inference_mode()
+    def g1_scalar_mul_batch(self, bases, scalars: list[int]) -> list:
+        """[k_i] P_i over G1: the DKG proof-of-knowledge check's A0 side."""
+        n = len(bases)
+        pad = next_pow2(n)
+        out = scalar_mul_affine(
+            C.g1_ops(self.ctx),
+            self.fr_ctx,
+            self._g1(list(bases) + [None] * (pad - n)),
+            self._scalars(list(scalars) + [0] * (pad - n)),
+        )
+        return self._first(C.g1_unpack, out, n)
+
+    @torch.inference_mode()
+    def g2_scalar_mul_batch(self, bases, scalars: list[int]) -> list:
+        """[k_i] P_i over G2."""
+        n = len(bases)
+        pad = next_pow2(n)
+        out = scalar_mul_affine(
+            C.g2_ops(self.ctx),
+            self.fr_ctx,
+            self._g2(list(bases) + [None] * (pad - n)),
+            self._scalars(list(scalars) + [0] * (pad - n)),
+        )
+        return self._first(C.g2_unpack, out, n)
+
+    # -- ceremony calls (DKG verification and resharing) ------------------
+
+    # Lanes of one commitment_eval program. A larger call runs in chunks of
+    # this many lanes, each padded to its bucket as a whole call would be:
+    # the Straus tables grow with lanes x width (16 projective multiples of
+    # every commitment), and a 4-of-7 pubshare wave of 10,000 validators
+    # (131,072 padded lanes x 28 commitments) would not fit the card's memory.
+    EVAL_CHUNK_LANES = 32768
+
+    @staticmethod
+    def _eval_nbits(t: int, xs) -> int:
+        """Bit schedule of the x^k powers: the raw values are bounded by
+        max(x)^(t-1), so share indices need far fewer than 255 bits;
+        bucketed to a short ladder."""
+        mx = max((int(x) for x in xs), default=1)
+        need = max(1, t - 1) * max(1, mx.bit_length()) + 1
+        for cand in (32, 64, 128):
+            if need <= cand:
+                return cand
+        return 255
+
+    @torch.inference_mode()
+    def g1_gen_mul_batch(self, scalars: list[int]) -> list:
+        """[k_i] G over G1 through the fixed-base window table: the DKG
+        share and proof-of-knowledge checks' left side. The scalars are
+        secrets the caller owns: they ride the device as packed limbs, and
+        what comes back is public curve points."""
+        n = len(scalars)
+        if n == 0:
+            return []
+        pad = bucket_lanes(n)
+        out = g1_gen_mul(self.ctx, self.fr_ctx, self._scalars(list(scalars) + [0] * (pad - n)))
+        return self._first(C.g1_unpack, out, n)
+
+    @torch.inference_mode()
+    def commitment_eval_batch(self, commit_rows, xs: list[int], t: int) -> list:
+        """Evaluate commitment polynomials at public points, one lane a
+        row: row i is a flat sequence of vecs * t affine G1 commitments
+        (vecs concatenated degree-(t-1) vectors); the result is
+        sum_vec sum_k C_k * xs[i]^k. Runs in chunks of EVAL_CHUNK_LANES."""
+        n = len(commit_rows)
+        if n == 0:
+            return []
+        width = len(commit_rows[0])
+        if width % t or any(len(r) != width for r in commit_rows):
+            raise ValueError("commitment rows must share one vecs*t width")
+        vecs = width // t
+        nbits = self._eval_nbits(t, xs)
+        xs = list(xs)
+        out: list = []
+        for lo in range(0, n, self.EVAL_CHUNK_LANES):
+            rows = commit_rows[lo : lo + self.EVAL_CHUNK_LANES]
+            k = len(rows)
+            pad = bucket_lanes(k)
+            flat = [pt for row in rows for pt in row] + [None] * ((pad - k) * width)
+            res = commitment_eval(
+                self.ctx,
+                self.fr_ctx,
+                vecs,
+                t,
+                nbits,
+                _grid(self._g1(flat), pad, width),
+                self._ints(xs[lo : lo + k] + [0] * (pad - k)),
+            )
+            out.extend(self._first(C.g1_unpack, res, k))
+        return out
+
+    @torch.inference_mode()
+    def g1_msm_batch(self, points, scalars: list[int], segment_ids: list[int], n_segments: int) -> list:
+        """Segmented multi-scalar multiplication over G1 with full-width
+        scalars: out[s] = sum_{i: seg[i] == s} scalars[i] * points[i], the
+        reshare pubshare recombination (Pippenger)."""
+        if n_segments <= 0:
+            return []
+        n = len(points)
+        pad = bucket_lanes(max(n, 1))
+        out = g1_msm(
+            self.ctx,
+            self.fr_ctx,
+            next_pow2(n_segments),
+            255,
+            self._g1(list(points) + [None] * (pad - n)),
+            self._scalars(list(scalars) + [0] * (pad - n)),
+            self._ints(list(segment_ids) + [0] * (pad - n)),
+        )
+        return self._first(C.g1_unpack, out, n_segments)
+
+    @torch.inference_mode()
+    def lagrange_coeffs_batch(self, idx_rows, xs: list[int]) -> list[list[int]]:
+        """Lagrange basis rows at arbitrary evaluation points: row i lists
+        distinct share indices, xs[i] is its evaluation point; returns the
+        coefficient rows as ints (public: functions of public indices)."""
+        n = len(idx_rows)
+        if n == 0:
+            return []
+        t = len(idx_rows[0])
+        if any(len(r) != t for r in idx_rows):
+            raise ValueError("index rows must share one width")
+        pad = bucket_lanes(n)
+        benign = list(range(1, t + 1))
+        idx = self._ints([list(r) for r in idx_rows] + [benign] * (pad - n))
+        out = lagrange_coeffs_at(self.fr_ctx, idx, t, self._ints(list(xs) + [0] * (pad - n)))
+        flat = limb.ctx_unpack(self.fr_ctx, out.reshape(pad * t, -1))
+        return [flat[i * t : (i + 1) * t] for i in range(n)]
+
 
 # ---------------------------------------------------------------------------
 # Program-family registry
@@ -418,9 +675,8 @@ def kernel_families() -> dict[str, KernelFamily]:
 
 def _register_engine_families() -> None:
     """The engine's programs, under the JAX package's names, on canonical
-    generator-point inputs: 4 lanes (the ladder floor), t = 3. The DKG
-    families (g1_gen_mul, commitment_eval, g1_msm, ...) come with the DKG
-    port."""
+    generator-point inputs: 4 lanes (the ladder floor), t = 3; the ceremony
+    families' evaluation points are 1..4."""
     from charon_tpu_torch.crypto.g1g2 import G1_GEN, G2_GEN, g1_to_bytes, g2_to_bytes
 
     n, t = 4, 3
@@ -457,6 +713,15 @@ def _register_engine_families() -> None:
     def h2c(u00, u01, u10, u11, s0, s1):
         return SSWU.hash_to_g2_graph(ctx, (u00, u01), (u10, u11), s0, s1)
 
+    def ones(dev):
+        return fr(dev, [1] * n)
+
+    def xs(dev):
+        return torch.arange(1, n + 1, device=dev)
+
+    def lag_at(idx, xs):
+        return lagrange_coeffs_at(fr_ctx, idx, t, xs)
+
     families = {
         "verify": (lambda d: spec(functools.partial(DP.batched_verify, ctx), (g1(d), g2(d), g2(d))), False),
         "verify_rlc": (
@@ -492,6 +757,24 @@ def _register_engine_families() -> None:
             lambda d: spec(dec_g1, DEC.pack_parsed_g1(ctx, [DEC.parse_g1_lane(g1_to_bytes(G1_GEN))] * n, d)),
             True,
         ),
+        # the ceremony families: fixed-base table adds, the commitment
+        # evaluation, the reshare Pippenger MSM (curve-heavy), and the
+        # ladders and Lagrange rows (cheap)
+        "g1_gen_mul": (lambda d: spec(functools.partial(g1_gen_mul, ctx, fr_ctx), (ones(d),)), False),
+        "commitment_eval": (
+            lambda d: spec(functools.partial(commitment_eval, ctx, fr_ctx, 1, t, 32), (grid(g1(d), t), xs(d))),
+            False,
+        ),
+        "g1_msm": (
+            lambda d: spec(
+                functools.partial(g1_msm, ctx, fr_ctx, 1, 255),
+                (g1(d), ones(d), torch.zeros(n, dtype=torch.int64, device=d)),
+            ),
+            False,
+        ),
+        "g1_scalar_mul": (lambda d: spec(functools.partial(scalar_mul_affine, g1f, fr_ctx), (g1(d), ones(d))), True),
+        "g2_scalar_mul": (lambda d: spec(functools.partial(scalar_mul_affine, g2f, fr_ctx), (g2(d), ones(d))), True),
+        "lagrange_at": (lambda d: spec(lag_at, (idx(d), xs(d))), True),
     }
     for fname, (build, sentinel) in families.items():
         register_kernel_family(

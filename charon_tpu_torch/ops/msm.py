@@ -168,3 +168,39 @@ def msm_active() -> bool:
     if _MSM_MODE is not None:
         return _MSM_MODE
     return True
+
+
+# Ceremony routing (DKG and resharing): the commitment evaluation picks
+# Straus joint windowed mul or per-lane double-and-add, and the reshare MSM
+# its Pippenger window width. Owned by core/autotune.KernelConfig, like
+# set_msm; read at call time.
+_CEREMONY_STRAUS: bool | None = None
+_CEREMONY_WINDOW: int | None = None
+
+
+def set_ceremony_straus(mode: bool | None) -> None:
+    """Commitment-polynomial evaluation: Straus joint windowed mul (True)
+    vs per-lane double-and-add (False); None restores the default (on)."""
+    global _CEREMONY_STRAUS
+    _CEREMONY_STRAUS = mode
+
+
+def ceremony_straus_active() -> bool:
+    if _CEREMONY_STRAUS is not None:
+        return _CEREMONY_STRAUS
+    return True
+
+
+def set_ceremony_window(window: int | None) -> None:
+    """Pippenger window width for the ceremony MSM (reshare pubshare
+    combination); None restores the default (8)."""
+    global _CEREMONY_WINDOW
+    if window is not None and not 1 <= window <= 16:
+        raise ValueError(f"ceremony MSM window out of range: {window}")
+    _CEREMONY_WINDOW = window
+
+
+def ceremony_window() -> int:
+    if _CEREMONY_WINDOW is not None:
+        return _CEREMONY_WINDOW
+    return 8

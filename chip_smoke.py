@@ -51,7 +51,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   8. the slot crypto plane (parallel/mesh.SlotCryptoPlane on the card)
      under its coalescer (core/cryptoplane.SlotCoalescer, the device
      decode): the boot warm-up through the plane's g1dec and h2c programs,
-     prewarm, then the 1k-validator slot coalesced (every partial as 8
+     prewarm (one verify and one recombine bucket, both tiers, the
+     decode-fused programs too), then the 1k-validator slot coalesced (every partial as 8
      verify calls and every validator as 2 recombine duties, t = 4) into
      ONE flush of verify_rlc_dec and step_rlc_dec, every verdict True and
      each group signature's bytes equal to phase 6's; a forged partial
@@ -60,12 +61,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      flush under the int8 configuration. All ten programs must run, each
      part launching its configuration's kernels only; each flush's stats
      and each program's walls and lanes;
-  9. every kernel timed at the four row counts its duty launched it at
+  9. the DKG and resharing ceremonies (dkg/frost.py, dkg/reshare.py and
+     the engine's ceremony calls): one node's round-2 verification waves
+     of a 4-of-7 FROST DKG over 10,000 validators (BASELINE config 4),
+     70,000 lanes each: the proof-of-knowledge wave ([mu]G by the
+     fixed-base table against R + [c]A0 by the ladder and a G1 sum), the
+     share wave ([f_i(me)]G against the Straus commitment evaluation) and
+     the pubshare wave (width 28 against [s_j]G), every commitment and nonce
+     point built on the card, 64 seeded lanes of each held against the host
+     oracle, one forged share and one forged proof the only lanes flagged;
+     the G2 ladder and the Lagrange rows against the host; a FROST ceremony
+     (n = 4, t = 3, 4 validators) and a reshare rotation (16 validators)
+     end to end with the card engine on every node, their group keys
+     recovered from t shares; a 1,024-lane share wave under the int8
+     configuration (K4 Fp and Fr, never K1-K3; the default waves the
+     reverse); the tuner's ceremony axes at the waves' lanes. Each wave's
+     wall, lanes, launches and peak device memory;
+ 10. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
      during phases 5-6), each beside its bound;
- 10. the kernels JSON line (with each kernel's launches in the full-width
-     plane slot, or in the int8 plane flush for K4-K6), then the result
-     line.
+ 11. the kernels JSON line (with each kernel's launches in the full-width
+     plane slot, or in the int8 plane flush for K4-K6, and in the three
+     full-width DKG waves, or the int8 share wave for K4-K6), then the
+     result line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -342,7 +360,7 @@ def check_kernels(seed: int) -> dict:
 
 
 def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
-    """Phase 9: each kernel's time (C entry point alone, CUDA events over
+    """Phase 10: each kernel's time (C entry point alone, CUDA events over
     200 queued launches) at the DUTY_SHAPES row counts its duty launched it at
     most often, beside the bound. The operands stay in L2 across the
     launches, as on the duty, where each kernel's operands were written by
@@ -374,11 +392,19 @@ def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_tuner(lanes: int) -> None:
-    """autotune.resolve on the card over the mxu_mont axis at the duty's
-    lane count, with its profile in a scratch directory under the build
-    directory. Its choice is printed; the duties below set their
-    configurations themselves."""
+# what "on" and "off" run on each axis the script tunes
+TUNER_VALUES = {
+    "mxu_mont": ("K4-K6", "K1-K3"),
+    "ceremony_straus": ("Straus", "per-lane ladder"),
+    "ceremony_msm_w8": ("window 8", "window 4"),
+}
+
+
+def run_tuner(lanes: int, axis: str = "mxu_mont") -> None:
+    """autotune.resolve on the card over one axis at `lanes` (the duty's or
+    the wave's lane count), with its profile in a scratch directory under
+    the build directory. Its timings, spread and choice are printed; the
+    phases set their configurations themselves."""
     import tempfile
     from pathlib import Path
 
@@ -389,13 +415,14 @@ def run_tuner(lanes: int) -> None:
     with tempfile.TemporaryDirectory(dir=MK.BUILD_DIR) as tmp:
         res = autotune.resolve(
             "force", Path(tmp) / autotune.PROFILE_BASENAME,
-            lanes=lanes, candidates={"mxu_mont": autotune.CANDIDATES["mxu_mont"]},
+            lanes=lanes, candidates={axis: autotune.CANDIDATES[axis]},
         )
         prof = autotune.load_profile(Path(tmp) / autotune.PROFILE_BASENAME)
-    on, off, spread = (res.timings["mxu_mont"][k] * 1e3 for k in ("on", "off", "spread"))
+    on, off, spread = (res.timings[axis][k] * 1e3 for k in ("on", "off", "spread"))
+    on_name, off_name = TUNER_VALUES[axis]
     log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {lanes} lanes "
-        f"(min of {autotune.TUNE_REPS}): mxu_mont on (K4-K6) {on:.3f} ms, off (K1-K3) {off:.3f} ms, "
-        f"spread {spread:.3f} ms; choice mxu_mont={res.config.mxu_mont}; "
+        f"(min of {autotune.TUNE_REPS}): {axis} on ({on_name}) {on:.3f} ms, off ({off_name}) {off:.3f} ms, "
+        f"spread {spread:.3f} ms; choice {axis}={getattr(res.config, axis)}; "
         f"profile {prof['platform']} {prof['capability']} torch {prof['torch_version']} CUDA {prof['cuda_version']}")
     MK.reset_launches()
 
@@ -836,6 +863,10 @@ def profile_device(impl, batch, label: str) -> None:
 
 PLANE_VERIFY_CALLS = 8
 PLANE_SMALL = 64  # validators of the attribution, point-input and int8 flushes
+# prewarm's buckets: one verify and one recombine bucket (the smallest), not
+# the plane's default ladder: the port has no per-shape compile, so a bucket
+# buys only its first launches
+PLANE_PREWARM_LANES = (1,)
 
 
 def _rows(vals: list):
@@ -957,8 +988,12 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
         ))
         _check_launches(dict(MK.LAUNCHES), "plane warm-up", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
 
-        report = stage("plane_prewarm", lambda: asyncio.run(coal.prewarm()), {})
-        log("plane prewarm (kind, bucket lanes, s):", json.dumps(report))
+        report = stage(
+            "plane_prewarm", lambda: asyncio.run(coal.prewarm(PLANE_PREWARM_LANES, PLANE_PREWARM_LANES)), {}
+        )
+        log(f"plane prewarm cut to verify and recombine lanes {PLANE_PREWARM_LANES} (the plane's default ladder: "
+            f"{plane.PREWARM_VERIFY_LANES} and {plane.PREWARM_RECOMBINE_LANES}); (kind, bucket lanes, s):",
+            json.dumps(report))
 
         # the coalesced slot at full width
         lanes = _verify_lanes(vals)
@@ -1040,6 +1075,261 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the DKG and resharing ceremonies
+# ---------------------------------------------------------------------------
+
+DKG_N, DKG_T = 7, 4  # the 4-of-7 split of BASELINE configs 1-2
+DKG_VALIDATORS = 10_000  # BASELINE config 4
+DKG_ME = 1  # the node whose round 2 the phase runs
+DKG_SAMPLE = 64  # lanes of each wave held against the host oracle
+DKG_INT8_LANES = 1024
+DKG_FROST = (4, 3, 4)  # the ceremony end to end: n, t, validators
+DKG_RESHARE = (4, 3, 16)  # the rotation: n, t, validators (bench_dkg.py's accelerator shape)
+DKG_CTX = b"chip-smoke cluster definition"
+G1_ONLY_IDLE = INT8_KERNELS + ("fp2_mul", "fp2_sqr")  # a G1 wave of the default configuration
+
+
+def _horner(poly, x: int) -> int:
+    from charon_tpu_torch.crypto.fields import R
+
+    acc = 0
+    for c in reversed(poly):
+        acc = (acc * x + c) % R
+    return acc
+
+
+def _host_eval(row, x: int, t: int):
+    """sum over row's t-vectors of sum_k C_k x^k, frost's host loop."""
+    from charon_tpu_torch.crypto import g1g2
+    from charon_tpu_torch.crypto.fields import R
+
+    acc = None
+    for v in range(len(row) // t):
+        xpow = 1
+        for c in row[v * t : (v + 1) * t]:
+            acc = g1g2.g1_add(acc, g1g2.g1_mul(c, xpow))
+            xpow = xpow * x % R
+    return acc
+
+
+def _wave(name: str, fn, lanes: int, launched: tuple, idle: tuple, walls: dict):
+    """One DKG wave on the card: the counts set to 0 just before and read
+    just after, its wall, lanes, launches and peak device memory."""
+    import torch
+
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    torch.cuda.reset_peak_memory_stats()
+    MK.reset_launches()
+    out = stage(f"dkg_{name}", fn, walls)
+    launches = dict(MK.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"dkg wave {name}: {lanes} lanes in {walls[f'dkg_{name}']:.3f} s, peak memory {peak:.2f} GiB, launches",
+        json.dumps({k: c for k, c in launches.items() if c}))
+    _check_launches(launches, f"DKG {name}", launched, idle)
+    MK.reset_launches()
+    return out, launches
+
+
+def _flagged(name: str, lhs: list, rhs: list, want: list) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(lhs, rhs)) if a != b]
+    if len(lhs) != len(rhs) or bad != want:
+        raise AssertionError(f"DKG {name}: lanes {bad[:8]} disagree, want exactly {want}")
+
+
+def run_dkg(seed: int, validators: int = DKG_VALIDATORS) -> dict:
+    """One node's round-2 verification waves of a 4-of-7 FROST DKG over
+    `validators` validators (BASELINE config 4) on the card, then a FROST
+    ceremony and a reshare rotation end to end through the port's dkg/
+    modules, an int8 share wave and the tuner's ceremony axes. Returns each
+    kernel's launches over the three full-width waves (the int8 wave's for
+    K4-K6)."""
+    import asyncio
+
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.crypto import g1g2, shamir
+    from charon_tpu_torch.crypto.fields import R
+    from charon_tpu_torch.dkg import frost, reshare
+    from charon_tpu_torch.ops.blsops import BlsEngine
+
+    n, t, v, me = DKG_N, DKG_T, validators, DKG_ME
+    G = g1g2.G1_GEN
+    engine = BlsEngine()
+    walls: dict = {}
+    rng = random.Random(f"dkg/{seed}")
+    lanes = n * v  # lane (i - 1) * v + val: peer i's ceremony of validator val, frost's order
+    t0 = time.perf_counter()
+    polys = [[rng.randrange(1, R) for _ in range(t)] for _ in range(lanes)]
+    nonces = [rng.randrange(1, R) for _ in range(lanes)]
+    log(f"dkg: {n} parties, t = {t}, {v} validators, node {me}: {lanes} lanes a wave; "
+        f"host secrets in {time.perf_counter() - t0:.1f} s")
+
+    # round 1 of every peer: the commitments C_ik = [a_ik] G and nonce points
+    # R = [k] G, built on the card
+    scalars = [c for poly in polys for c in poly] + nonces
+    pts, _ = _wave("commitments", lambda: engine.g1_gen_mul_batch(scalars), len(scalars),
+                   ("mont_mul_fp",), G1_ONLY_IDLE + ("mont_mul_fr",), walls)
+    commits = [pts[lane * t : (lane + 1) * t] for lane in range(lanes)]
+    r_pts = pts[lanes * t :]
+    for k in random.Random(f"dkg/{seed}/c").sample(range(len(scalars)), min(DKG_SAMPLE, len(scalars))):
+        if pts[k] != g1g2.g1_mul(G, scalars[k]):
+            raise AssertionError(f"DKG commitments: point {k} differs from g1_mul")
+    t0 = time.perf_counter()
+    shares = [_horner(poly, me) for poly in polys]
+    chal = [frost._pok_challenge(DKG_CTX, lane // v + 1, commits[lane][0], r_pts[lane]) for lane in range(lanes)]
+    mus = [(k + poly[0] * c) % R for k, poly, c in zip(nonces, polys, chal)]
+    forged_share, forged_pok = rng.randrange(lanes), rng.randrange(lanes)
+    shares[forged_share] = (shares[forged_share] + 1) % R
+    mus[forged_pok] = (mus[forged_pok] + 1) % R
+    sample = sorted(rng.sample(range(lanes), min(DKG_SAMPLE, lanes)))
+    log(f"dkg: round-1 shares, challenges and responses on the host in {time.perf_counter() - t0:.1f} s; "
+        f"forged share lane {forged_share}, forged proof lane {forged_pok}")
+    default_waves: dict = {}
+
+    # the proof-of-knowledge wave: [mu] G (fixed-base table) against R + [c] A0
+    # (ladder, then the sum on the card where frost adds on the host)
+    def pok_wave():
+        a0c = engine.g1_scalar_mul_batch([c[0] for c in commits], chal)
+        return engine.g1_gen_mul_batch(mus), a0c, engine.aggregate_pks_batch([[r, ac] for r, ac in zip(r_pts, a0c)])
+
+    (lhs, a0c, rhs), default_waves["pok"] = _wave(
+        "pok", pok_wave, lanes, ("mont_mul_fp",), G1_ONLY_IDLE + ("mont_mul_fr",), walls
+    )
+    _flagged("pok", lhs, rhs, [forged_pok])
+    for k in sample:
+        if lhs[k] != g1g2.g1_mul(G, mus[k]) or rhs[k] != g1g2.g1_add(r_pts[k], g1g2.g1_mul(commits[k][0], chal[k])):
+            raise AssertionError(f"DKG pok: lane {k} differs from the host oracle")
+    log(f"dkg pok: only lane {forged_pok} flagged")
+
+    # the share wave: [f_i(me)] G (fixed-base table) against sum_k C_ik me^k (Straus)
+    (lhs, rhs), default_waves["share"] = _wave(
+        "share", lambda: (engine.g1_gen_mul_batch(shares), engine.commitment_eval_batch(commits, [me] * lanes, t)),
+        lanes, ("mont_mul_fp", "mont_mul_fr"), G1_ONLY_IDLE, walls,
+    )
+    _flagged("share", lhs, rhs, [forged_share])
+    for k in sample:
+        if lhs[k] != g1g2.g1_mul(G, shares[k]) or rhs[k] != _host_eval(commits[k], me, t):
+            raise AssertionError(f"DKG share: lane {k} differs from the host oracle")
+    log(f"dkg share: only lane {forged_share} flagged")
+
+    # the pubshare wave: every (validator, j) lane evaluates the n
+    # concatenated commitment vectors at j (width n t), against [s_j] G
+    # through the fixed-base table, s_j = sum_i f_i(j) (every share is known here)
+    rows = [[c for i in range(n) for c in commits[i * v + val]] for val in range(v) for _ in range(n)]
+    xs = [j for _ in range(v) for j in range(1, n + 1)]
+    pub, default_waves["pubshare"] = _wave(
+        "pubshare", lambda: engine.commitment_eval_batch(rows, xs, t), len(rows),
+        ("mont_mul_fp", "mont_mul_fr"), G1_ONLY_IDLE, walls,
+    )
+    sj = [sum(_horner(polys[i * v + val], j) for i in range(n)) % R for val in range(v) for j in range(1, n + 1)]
+    table, _ = _wave("pubshare_table", lambda: engine.g1_gen_mul_batch(sj), len(sj),
+                     ("mont_mul_fp",), G1_ONLY_IDLE + ("mont_mul_fr",), walls)
+    _flagged("pubshare", pub, table, [])
+    for k in sample:
+        if pub[k] != _host_eval(rows[k], xs[k], t):
+            raise AssertionError(f"DKG pubshare: lane {k} differs from the host oracle")
+    log(f"dkg pubshare: {len(pub)} lanes equal through Straus and the fixed-base table")
+
+    # the engine calls no wave above makes: G2 ladders and Lagrange rows
+    g2b = [g1g2.g2_mul(g1g2.G2_GEN, rng.randrange(1, R)) for _ in range(DKG_SAMPLE)]
+    ks = [rng.randrange(R) for _ in range(DKG_SAMPLE)]
+    got, _ = _wave("g2_scalar_mul", lambda: engine.g2_scalar_mul_batch(g2b, ks), DKG_SAMPLE,
+                   ("fp2_mul", "fp2_sqr"), INT8_KERNELS, walls)
+    if got != [g1g2.g2_mul(p, k) for p, k in zip(g2b, ks)]:
+        raise AssertionError("DKG g2_scalar_mul_batch differs from g2_mul")
+    idx = [sorted(rng.sample(range(1, n + 1), t)) for _ in range(DKG_SAMPLE)]
+    at = [rng.randrange(n + 2) for _ in range(DKG_SAMPLE)]
+    got, _ = _wave("lagrange", lambda: engine.lagrange_coeffs_batch(idx, at), DKG_SAMPLE,
+                   ("mont_mul_fr",), G1_ONLY_IDLE + ("mont_mul_fp",), walls)
+    for row, x, coeffs in zip(idx, at, got):
+        for j, xj in enumerate(row):
+            num = den = 1
+            for xm in row[:j] + row[j + 1 :]:
+                num, den = num * (x - xm) % R, den * (xj - xm) % R
+            if coeffs[j] != num * pow(den, -1, R) % R:
+                raise AssertionError(f"DKG lagrange_coeffs_batch: row {row} at {x} differs")
+
+    # a FROST ceremony end to end, the card engine on every node
+    fn_, ft_, fv_ = DKG_FROST
+
+    async def frost_ceremony():
+        net = frost.MemFrostTransport(fn_)
+        return await asyncio.gather(*(
+            frost.run_frost_parallel(net.participant(i), i, fn_, ft_, fv_, DKG_CTX, engine=engine)
+            for i in range(1, fn_ + 1)
+        ))
+
+    res, _ = _wave("frost", lambda: asyncio.run(frost_ceremony()), fn_ * fv_,
+                   ("mont_mul_fp", "mont_mul_fr"), G1_ONLY_IDLE, walls)
+    for val in range(fv_):
+        ref = res[0][val]
+        if any(r[val].group_pubkey != ref.group_pubkey or r[val].pubshares != ref.pubshares for r in res):
+            raise AssertionError(f"DKG frost: nodes disagree on validator {val}'s keys")
+        secret = shamir.recover_secret({i + 1: res[i][val].secret_share for i in range(ft_)})
+        if g1g2.g1_mul(G, secret) != ref.group_pubkey or any(
+            g1g2.g1_mul(G, res[i][val].secret_share) != ref.pubshares[i + 1] for i in range(fn_)
+        ):
+            raise AssertionError(f"DKG frost: validator {val}'s shares do not match its keys")
+    log(f"dkg frost: {fn_} nodes, t = {ft_}, {fv_} validators: every node derived the same keys, "
+        f"t shares recover each group key")
+
+    # a reshare rotation end to end (bench_dkg.py's accelerator shape)
+    rn_, rt_, rv_ = DKG_RESHARE
+    old_shares, old_pubs, gpks = {}, [], []
+    for _ in range(rv_):
+        secret = rng.randrange(1, R)
+        split = shamir.split(secret, rn_, rt_, rand=lambda: rng.randrange(1, R))
+        for i, s_ in split.items():
+            old_shares.setdefault(i, []).append(s_)
+        old_pubs.append({i: g1g2.g1_mul(G, s_) for i, s_ in split.items()})
+        gpks.append(g1g2.g1_mul(G, secret))
+    cfg = reshare.ReshareConfig(tuple(range(1, rn_ + 1)), tuple(range(1, rn_ + 1)), rt_, rt_, rv_, DKG_CTX)
+
+    async def rotation():
+        net = reshare.MemReshareTransport(cfg.old_indices, timeout=600.0)
+        return await asyncio.gather(*(
+            reshare.run_reshare_parallel(net.participant(i), i, cfg, old_pubs, gpks, share_secrets=old_shares[i],
+                                         engine=engine)
+            for i in cfg.old_indices
+        ))
+
+    res, _ = _wave("reshare", lambda: asyncio.run(rotation()), rv_ * (rn_ + 1) * rn_ * rt_,
+                   ("mont_mul_fp", "mont_mul_fr"), G1_ONLY_IDLE, walls)
+    for val in range(rv_):
+        rec = shamir.recover_secret({j: res[j - 1][val].secret_share for j in range(1, rt_ + 1)})
+        if g1g2.g1_mul(G, rec) != gpks[val] or any(r[val].group_pubkey != gpks[val] for r in res):
+            raise AssertionError(f"DKG reshare moved validator {val}'s group key")
+        if any(res[j - 1][val].secret_share == old_shares[j][val] for j in range(1, rn_ + 1)):
+            raise AssertionError(f"DKG reshare left a share of validator {val} unrotated")
+    log(f"dkg reshare: {rn_} nodes, t = {rt_}, {rv_} validators rotated, every group key recovered unchanged")
+
+    # the int8 configuration: a share wave on the first DKG_INT8_LANES lanes
+    k8 = min(DKG_INT8_LANES, lanes)
+    KernelConfig(mxu_mont=True).apply()
+    try:
+        (l8, r8), int8_launches = _wave(
+            "share_int8",
+            lambda: (engine.g1_gen_mul_batch(shares[:k8]), engine.commitment_eval_batch(commits[:k8], [me] * k8, t)),
+            k8, ("mont_mul_mxu_fp", "mont_mul_mxu_fr"), DEFAULT_KERNELS + ("fp2_mul_mxu", "fp2_sqr_mxu"), walls,
+        )
+    finally:
+        KernelConfig().apply()
+    if l8 != lhs[:k8] or r8 != rhs[:k8]:
+        raise AssertionError("DKG int8 share wave differs from the default one")
+
+    # the tuner's ceremony axes at the waves' lanes
+    run_tuner(lanes, "ceremony_straus")
+    run_tuner(rv_ * (rn_ + 1) * rn_ * rt_, "ceremony_msm_w8")
+    KernelConfig().apply()
+
+    log("dkg walls (s):", json.dumps(walls))
+    return {
+        name: (int8_launches[name] if name in INT8_KERNELS else sum(w[name] for w in default_waves.values()))
+        for name in KERNELS
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1099,6 +1389,7 @@ def main(argv=None) -> int:
     )
     profile_device(impl, batch, "default")
     plane_launches = run_plane(vals, duty_sigs, args.seed)
+    dkg_launches = run_dkg(args.seed)
     duty_rows = {name: (int8_rows if name in INT8_KERNELS else default_rows)[name] for name in KERNELS}
     time_duty_shapes(results, duty_rows, args.seed)
 
@@ -1108,7 +1399,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"charon_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[name], **results[name], "library_ms": None,
-            "plane_launches": plane_launches[name], "status": "ported",
+            "plane_launches": plane_launches[name], "dkg_launches": dkg_launches[name], "status": "ported",
         })
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(json.dumps({

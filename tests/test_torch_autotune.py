@@ -62,6 +62,8 @@ GOLDEN = {
 def _kernel_flags():
     yield
     MSM.set_msm(None)
+    MSM.set_ceremony_straus(None)
+    MSM.set_ceremony_window(None)
     L.set_mxu(None)
 
 
@@ -341,10 +343,7 @@ def test_schema_append_and_bumped_requirement_allowed():
 # -- KernelConfig routing ------------------------------------------------------
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [("fp2_fusion", False), ("pallas", False), ("ceremony_straus", False), ("ceremony_msm_w8", False)],
-)
+@pytest.mark.parametrize("field,value", [("fp2_fusion", False), ("pallas", False)])
 def test_apply_raises_for_a_value_without_a_route(field, value):
     """No route means no silent ignore: apply() raises and changes
     nothing."""
@@ -391,11 +390,11 @@ def test_env_overrides_parse_and_apply_env():
 
 
 def test_candidates_cover_every_axis():
-    """msm and mxu_mont bench on the card; the axes with no route in the
-    port are registered as inapplicable."""
+    """msm, mxu_mont and the two ceremony axes bench on the card; the axis
+    with no route in the port (fp2_fusion) is registered as inapplicable."""
     assert set(autotune.CANDIDATES) == set(KernelConfig.TUNABLE)
     applicable = {f for f, c in autotune.CANDIDATES.items() if c.applicable()}
-    assert applicable == {"msm", "mxu_mont"}
+    assert applicable == {"msm", "mxu_mont", "ceremony_straus", "ceremony_msm_w8"}
     with pytest.raises(ValueError):
         autotune.register_candidate(autotune.Candidate("pallas", "", lambda: True, lambda n, d: None))
 
@@ -472,7 +471,80 @@ def test_mxu_mont_bench_runs_the_kernels_the_axis_reroutes(monkeypatch, mxu_mont
 def test_aot_prewarm_walks_the_lane_ladder():
     ran = []
     cands = {"mxu_mont": _fake_candidate("mxu_mont", {True: 0.0, False: 0.0}, ran),
-             "ceremony_straus": autotune.CANDIDATES["ceremony_straus"]}
+             "fp2_fusion": autotune.CANDIDATES["fp2_fusion"]}
     report = autotune.aot_prewarm(KernelConfig(mxu_mont=True), lanes=(3, 16), candidates=cands, device="cpu")
     assert [(axis, lanes) for axis, lanes, _ in report] == [("mxu_mont", 4), ("mxu_mont", 16)]
     assert ran == [("mxu_mont", 3, True), ("mxu_mont", 16, True)]
+
+
+# -- the ceremony axes -----------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "field,value,straus,window",
+    [("ceremony_straus", True, True, 8), ("ceremony_straus", False, False, 8),
+     ("ceremony_msm_w8", True, True, 8), ("ceremony_msm_w8", False, True, 4)],
+)
+def test_apply_routes_the_ceremony_axes(field, value, straus, window):
+    """As the reference's apply(): ceremony_straus picks the commitment
+    evaluation's route, ceremony_msm_w8 the Pippenger window (8, else 4)."""
+    KernelConfig(ceremony_straus=not straus, ceremony_msm_w8=window != 8).apply()
+    assert KernelConfig(**{field: value}).apply() is True
+    assert MSM.ceremony_straus_active() is straus and MSM.ceremony_window() == window
+    KernelConfig().apply()
+    assert MSM.ceremony_straus_active() is True and MSM.ceremony_window() == 8
+
+
+@pytest.mark.parametrize("straus", [True, False])
+def test_ceremony_eval_bench_runs_the_route_the_axis_picks(monkeypatch, straus):
+    """The ceremony_straus bench is blsops.commitment_eval at the bench's
+    lanes: Straus joint windowed mul when on, the per-lane ladder when off."""
+    from charon_tpu_torch.ops import curve as C
+
+    calls = []
+    for mod, name in ((MSM, "windowed_joint_mul"), (C, "point_scalar_mul")):
+        def spy(*args, _fn=getattr(mod, name), _name=name, **kw):
+            calls.append((_name, kw.get("nbits")))
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    KernelConfig(ceremony_straus=straus).apply()
+    autotune.CANDIDATES["ceremony_straus"].builder(3, torch.device("cpu"))()
+    assert calls == [("windowed_joint_mul" if straus else "point_scalar_mul", 32)]
+
+
+@pytest.mark.parametrize("w8", [True, False])
+def test_ceremony_msm_bench_takes_the_window_the_axis_picks(monkeypatch, w8):
+    """The ceremony_msm_w8 bench is blsops.g1_msm over the bench's lanes,
+    with the window the axis sets (the MSM itself is faked here: a window-8
+    Pippenger over 255-bit scalars is seconds of CPU)."""
+    from charon_tpu_torch.ops import curve as C
+
+    seen = []
+
+    def fake(f, fr_ctx, points, scalars, segment_ids, n_segments, nbits=64, window=8):
+        seen.append((scalars.shape[0], n_segments, nbits, window))
+        return C.point_identity(f, (n_segments,))
+
+    monkeypatch.setattr(MSM, "msm_segmented", fake)
+    KernelConfig(ceremony_msm_w8=w8).apply()
+    autotune.CANDIDATES["ceremony_msm_w8"].builder(5, torch.device("cpu"))()
+    assert seen == [(8, 1, 255, 8 if w8 else 4)]
+
+
+def test_micro_bench_tunes_the_ceremony_axes():
+    """The ceremony axes tune like the others: each trial applies its value
+    to the ceremony flags, and the faster value wins beyond the spread."""
+    import time
+
+    def builder(lanes, device):
+        fast = MSM.ceremony_window() == 4
+        return lambda: time.sleep(0.0 if fast else 0.02)
+
+    cands = {"ceremony_msm_w8": autotune.Candidate("ceremony_msm_w8", "fake", lambda: True, builder),
+             "ceremony_straus": autotune.Candidate(
+                 "ceremony_straus", "fake", lambda: True,
+                 lambda lanes, device: (lambda: time.sleep(0.0 if MSM.ceremony_straus_active() else 0.02)))}
+    choices, timings, runs = autotune.micro_bench(cands, lanes=8, reps=2, device="cpu")
+    assert choices == {"ceremony_msm_w8": (False, "tuned"), "ceremony_straus": (True, "tuned")}
+    assert runs == 4 and timings["ceremony_msm_w8"]["off"] < timings["ceremony_msm_w8"]["on"]

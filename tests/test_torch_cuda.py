@@ -3,8 +3,8 @@ K2, K3, and the int8 tensor-core K4 Fp, K4 Fr, K5, K6) against its plain
 PyTorch version on the same CUDA tensors, K4-K6 against K1-K3, every
 kernel at the edges of its tiles and waves and on operands off 16-byte
 words (K4-K6 against K1-K3 at both kernels' edges), and TorchImpl's
-verify/aggregate on the card against the host oracle under both kernel
-configurations.
+verify/aggregate, the slot plane and the DKG waves on the card against
+the host oracle or the CPU engine, under both kernel configurations.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where those are absent:
@@ -33,6 +33,8 @@ def _default_route():
     yield
     L.set_mxu(None)
     MSM.set_msm(None)
+    MSM.set_ceremony_straus(None)
+    MSM.set_ceremony_window(None)
 
 
 @pytest.fixture
@@ -247,3 +249,78 @@ def test_slot_plane_on_card_equals_the_cpu_plane(card):
     assert on_card[0][1] == on_card[2][1] == [True, False, True, True]
     assert on_card[1] == on_card[3] == [k != 4 for k in range(v * t)]
     assert on_card[4] == ([msgs[0], msgs[3]], [True, True]) and on_card[5] == (gpks, [True] * v)
+
+
+@pytest.mark.parametrize("mxu_mont", [False, True])
+def test_dkg_waves_on_card_equal_the_cpu_engine(card, mxu_mont):
+    """The three round-2 verification waves of a 4-of-7 FROST DKG over 4
+    validators (proof of knowledge: the fixed-base table and the ladder;
+    shares: the table and the Straus evaluation, both routes; pubshares at
+    width 28), the G2 ladder, the Lagrange rows and the reshare MSM (both
+    windows) on cuda:0 against the same calls of the CPU engine, under
+    KernelConfig(mxu_mont=...); each configuration launches only its own
+    kernels, and no Fp2 one."""
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.crypto.fields import R
+    from charon_tpu_torch.ops.blsops import BlsEngine
+
+    rng = random.Random(2026)
+    n, t, v, me = 7, 4, 4, 3
+    lanes = n * v
+    G = g1g2.G1_GEN
+    commits = [[g1g2.g1_mul(G, rng.randrange(1, R)) for _ in range(t)] for _ in range(lanes)]
+    scalars = [rng.randrange(R) for _ in range(lanes)]
+    rows = [[c for i in range(n) for c in commits[i * v + val]] for val in range(v) for _ in range(n)]
+    xs = [j for _ in range(v) for j in range(1, n + 1)]
+    pts = [g1g2.g1_mul(G, rng.randrange(1, R)) for _ in range(12)]
+    seg = [rng.randrange(6) for _ in pts]
+
+    def waves(engine):
+        out = [engine.g1_gen_mul_batch(scalars), engine.g1_scalar_mul_batch([c[0] for c in commits], scalars)]
+        for straus in (True, False):
+            KernelConfig(mxu_mont=mxu_mont, ceremony_straus=straus).apply()
+            out.append(engine.commitment_eval_batch(commits, [me] * lanes, t))
+        out.append(engine.commitment_eval_batch(rows, xs, t))
+        out.append(engine.lagrange_coeffs_batch([[1, 3, 4, 7]] * 5, [0, 2, 5, 9, 11]))
+        for w8 in (True, False):
+            KernelConfig(mxu_mont=mxu_mont, ceremony_msm_w8=w8).apply()
+            out.append(engine.g1_msm_batch(pts, scalars[: len(pts)], seg, 6))
+        KernelConfig(mxu_mont=mxu_mont).apply()
+        return out
+
+    KernelConfig(mxu_mont=mxu_mont).apply()
+    MK.reset_launches()
+    on_card = waves(BlsEngine())
+    used = {k for k, c in MK.LAUNCHES.items() if c}
+    g2 = [g1g2.g2_mul(g1g2.G2_GEN, rng.randrange(1, R)) for _ in range(3)]
+    on_card.append(BlsEngine().g2_scalar_mul_batch(g2, scalars[:3]))
+    on_cpu = waves(BlsEngine(device="cpu")) + [BlsEngine(device="cpu").g2_scalar_mul_batch(g2, scalars[:3])]
+    assert on_card == on_cpu
+    assert on_card[2] == on_card[3] and on_card[0][5] == g1g2.g1_mul(G, scalars[5])
+    assert used == {k for k in ("mont_mul_fp", "mont_mul_fr", "mont_mul_mxu_fp", "mont_mul_mxu_fr") if ("_mxu" in k) == mxu_mont}
+
+
+@pytest.mark.parametrize("window", [4, 8])
+def test_msm_segmented_with_hundreds_of_segments_on_card(card, window):
+    """The reshare pubshare shape at scale: 255-bit scalars over 300
+    segments of a few points each, against the host oracle."""
+    from charon_tpu_torch.crypto.fields import R
+    from charon_tpu_torch.ops import curve as C
+
+    rng = random.Random(window)
+    n_seg, n = 300, 900
+    base = [g1g2.g1_mul(g1g2.G1_GEN, rng.randrange(1, R)) for _ in range(7)]
+    pts = [base[i % 7] for i in range(n)]
+    ks = [rng.randrange(R) for _ in range(n)]
+    seg = [i % n_seg for i in range(n)]
+    f = C.g1_ops(L.FP)
+    with torch.inference_mode():
+        out = MSM.msm_segmented(
+            f, L.FR, C.affine_to_point(f, C.g1_pack(L.FP, pts, card)),
+            L.to_device(L.ctx_pack(L.FR, ks), card), torch.tensor(seg, device=card), n_seg, nbits=255, window=window,
+        )
+        got = C.g1_unpack(L.FP, C.point_to_affine(f, out))
+    want = [None] * n_seg
+    for p, k, s in zip(pts, ks, seg):
+        want[s] = g1g2.g1_add(want[s], g1g2.g1_mul(p, k))
+    assert got == want
