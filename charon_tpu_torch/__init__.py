@@ -6,9 +6,12 @@ package imports neither jax nor `charon_tpu`. Layout mirrors the
 reference: `crypto/` (host copies of the pure-Python BLS12-381 modules),
 `ops/` (the batched engine, kernels K1-K6 in `ops/mont_kernels.py`),
 `csrc/` (their CUDA sources), `parallel/` (the slot crypto plane),
-`core/` (kernel routing, the startup tuner and the plane's coalescer),
-`tbls/` (the `TorchImpl` backend), `dkg/` (the FROST and resharing
-ceremonies), and `convert.py` (limb arrays between
-the two packages' layouts). Entry points
-run on the CUDA card unless the caller passes device="cpu".
+`core/` (kernel routing, the startup tuner, the plane's coalescer and
+its multi-tenant service, and the node's duty workflow), `tbls/` (the
+backend registry and the `TorchImpl` backend), `dkg/` (the FROST and
+resharing ceremonies), `eth2util/` and `app/` (host copies the workflow
+needs: SSZ and signing roots, logging, retries, tracing), `testutil/`
+(beacon and validator mocks, the in-process cluster), and `convert.py`
+(limb arrays between the two packages' layouts). Entry points run on the
+CUDA card unless the caller passes device="cpu".
 """

@@ -28,13 +28,18 @@ overlaps device work and the event loop never runs bigint math:
     decompresses them) or decompressed on the host ("python"). Items
     ship to a ThreadPoolExecutor in chunks.
   * PACK: once a window closes, tensor packing and the RLC randomness run
-    on the decode pool, so window k packs while the device still runs
-    window k-1.
+    on the decode pool, off the event loop.
   * DEVICE: one serialized worker thread dispatches the plane's programs.
 
 The window adapts: it grows toward `window_max` under sustained
 multi-job load and decays back to the base once traffic thins; a
-submission carrying a duty deadline pulls the flush earlier.
+submission carrying a duty deadline pulls the flush earlier. A window
+whose time is up while the device lane still runs the previous flush
+stays open until the lane is free: the lane runs one flush at a time, so
+every submission arriving meanwhile rides the next flush instead of
+queueing a flush of its own behind it. (The JAX package queues one flush
+a window; on this engine a program costs seconds whatever its lanes, so
+queued windows multiply the device time a slot takes.)
 
 Malformed encodings never reach the device: those lanes fail on the
 host and are left out of the batch. A device or pack error fails every
@@ -104,8 +109,7 @@ class FlushStats:
     lanes: int
     flush_seconds: float  # device-lane wall clock (pack excluded)
     window: float  # adaptive window in force when the flush armed
-    inflight: int  # device-lane depth at submit (>= 2: this flush
-    # double-buffered behind a program in flight)
+    inflight: int  # device-lane depth at submit (1: windows wait for a free lane)
     pad_lanes: int | None  # bucket-padding lanes shipped (packed path)
     padded_lanes: int | None  # total lanes after bucket padding
     decode_queue_seconds: tuple[float, ...]  # decode-pool queue delays
@@ -245,9 +249,9 @@ class SlotCoalescer:
         self.lanes_flushed = 0
         self.failed_flushes = 0  # flushes whose waiters got TblsError
         self.pad_lanes_flushed = 0  # bucket-padding lanes shipped
-        self.overlapped_flushes = 0  # submitted while the device was busy
-        self._inflight = 0  # flushes inside the device lane (incl. queued)
-        self.max_inflight = 0
+        self.held_flushes = 0  # windows held open for a busy device lane
+        self._inflight = 0  # flushes inside the device lane
+        self._lane_free: asyncio.Event | None = None  # set as a flush leaves the lane
         # called after each flush with (jobs, lanes), and with FlushStats:
         # both on the device worker thread (thread-safe sinks only)
         self.metrics_hook = metrics_hook
@@ -557,6 +561,13 @@ class SlotCoalescer:
             # behind it; submissions arriving meanwhile join this flush
             self.gated_flushes += 1
             await gate.wait()
+        if self._inflight:
+            # the device lane still runs the previous flush: this window
+            # stays open, and submissions arriving meanwhile join it
+            self.held_flushes += 1
+            while self._inflight:
+                self._lane_free = asyncio.Event()
+                await self._lane_free.wait()
         # submissions still mid-decode when the window closed join this
         # flush (ONE snapshot: later arrivals take the next window)
         pending = list(self._decode_tickets)
@@ -565,7 +576,7 @@ class SlotCoalescer:
         vq, self._verify_q = self._verify_q, []
         rq, self._recombine_q = self._recombine_q, []
         # new submissions from here on arm a fresh flush task, whose
-        # decode/pack stages overlap this flush's device stage
+        # decode stage overlaps this flush's device stage
         self._flush_task = None
         self._queue_deadline = None
         if not vq and not rq:
@@ -578,22 +589,15 @@ class SlotCoalescer:
         window_used = self._window_current
         self._adapt_window(vq, rq)
         loop = asyncio.get_running_loop()
-        # host stage 2: pack on the decode pool, so the device lane (maybe
-        # still running the previous window) never waits on packing
-        packed = None
-        if self.decode_workers > 0 and self._plane_has_packed_api():
-            try:
-                packed = await loop.run_in_executor(self._pool(), self._pack_flush, vq, rq)
-            except Exception as e:  # noqa: BLE001 — fail the waiters, not the loop
-                self.failed_flushes += 1
-                self._fail([*vq, *rq], e)
-                return
-        inflight = self._inflight + 1
-        self._inflight = inflight
-        self.max_inflight = max(self.max_inflight, inflight)
-        if inflight >= 2:
-            self.overlapped_flushes += 1
+        # this flush holds the device lane from here, its pack stage
+        # included: a window closing meanwhile waits for it
+        self._inflight += 1
+        inflight = self._inflight
         try:
+            # host stage 2: pack on the decode pool, off the event loop
+            packed = None
+            if self.decode_workers > 0 and self._plane_has_packed_api():
+                packed = await loop.run_in_executor(self._pool(), self._pack_flush, vq, rq)
             vres, rres = await loop.run_in_executor(
                 self._executor, self._run_device, vq, rq, packed, window_used, inflight
             )
@@ -603,6 +607,8 @@ class SlotCoalescer:
             return
         finally:
             self._inflight -= 1
+            if self._lane_free is not None:
+                self._lane_free.set()
         for job, res in zip(vq, vres):
             if not job.fut.done():
                 job.fut.set_result(res)

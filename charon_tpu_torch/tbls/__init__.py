@@ -1,8 +1,10 @@
 """Threshold-BLS backend contract for the PyTorch port.
 
 The same plugin boundary as the JAX package's `tbls` (ref:
-tbls/tbls.go:28-76): one `Implementation` interface and the `TblsError`
-every backend raises. The port keeps its own copy so that it imports
+tbls/tbls.go:28-76): one `Implementation` interface, the `TblsError`
+every backend raises, and the package-level functions the node's
+workflow calls, which dispatch to the implementation installed with
+`set_implementation`. The port keeps its own copy so that it imports
 nothing of the JAX package. Backends here:
 
   * python_impl — the host half of the pure-Python backend (key
@@ -13,6 +15,10 @@ nothing of the JAX package. Backends here:
 Wire types follow eth2 exactly (ref: tbls/tbls.go:16-25): PrivateKey is 32
 bytes, PublicKey 48 bytes (compressed G1), Signature 96 bytes (compressed
 G2). All byte values are ZCash-format compressed points.
+
+The default implementation is `TorchImpl()` on the CUDA card, built on
+first use; on a host without a card `get_implementation()` raises (there
+is no host fallback): a CPU caller installs its backend first.
 """
 
 from __future__ import annotations
@@ -103,3 +109,74 @@ class Implementation(abc.ABC):
     ) -> list[Signature]:
         return [self.aggregate(g) for g in groups]
 
+
+
+_current: Implementation | None = None
+
+
+def set_implementation(impl: Implementation) -> None:
+    """Swap the global backend (ref: tbls/tbls.go:72 SetImplementation)."""
+    global _current
+    _current = impl
+
+
+def get_implementation() -> Implementation:
+    """The installed backend; by default `TorchImpl()` on the card, which
+    raises RuntimeError when CUDA is not available."""
+    global _current
+    if _current is None:
+        from charon_tpu_torch.tbls.torch_impl import TorchImpl
+
+        _current = TorchImpl()
+    return _current
+
+
+# Package-level functions, mirroring ref tbls/tbls.go's package API.
+
+
+def generate_secret_key() -> PrivateKey:
+    return get_implementation().generate_secret_key()
+
+
+def secret_to_public_key(secret: PrivateKey) -> PublicKey:
+    return get_implementation().secret_to_public_key(secret)
+
+
+def threshold_split(secret: PrivateKey, total: int, threshold: int) -> dict[int, PrivateKey]:
+    return get_implementation().threshold_split(secret, total, threshold)
+
+
+def recover_secret(shares: Mapping[int, PrivateKey], total: int, threshold: int) -> PrivateKey:
+    return get_implementation().recover_secret(shares, total, threshold)
+
+
+def sign(secret: PrivateKey, data: bytes) -> Signature:
+    return get_implementation().sign(secret, data)
+
+
+def verify(pubkey: PublicKey, data: bytes, sig: Signature) -> None:
+    get_implementation().verify(pubkey, data, sig)
+
+
+def verify_aggregate(pubkeys: Sequence[PublicKey], data: bytes, sig: Signature) -> None:
+    get_implementation().verify_aggregate(pubkeys, data, sig)
+
+
+def threshold_aggregate(partials: Mapping[int, Signature]) -> Signature:
+    return get_implementation().threshold_aggregate(partials)
+
+
+def aggregate(sigs: Sequence[Signature]) -> Signature:
+    return get_implementation().aggregate(sigs)
+
+
+def verify_batch(items: Sequence[tuple[PublicKey, bytes, Signature]]) -> list[bool]:
+    return get_implementation().verify_batch(items)
+
+
+def threshold_aggregate_batch(batch: Sequence[Mapping[int, Signature]]) -> list[Signature]:
+    return get_implementation().threshold_aggregate_batch(batch)
+
+
+def aggregate_batch(groups: Sequence[Sequence[Signature]]) -> list[Signature]:
+    return get_implementation().aggregate_batch(groups)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (charon_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8] [--python-decode]
+    python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8] [--python-decode] [--node-slot 48]
+    python3 chip_smoke.py --node-sweep 12,24,36   # the kernel build and the node phase alone, at each slot
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -71,19 +72,33 @@ Phases, in order; any failure exits non-zero and prints no result:
      point built on the card, 64 seeded lanes of each held against the host
      oracle, one forged share and one forged proof the only lanes flagged;
      the G2 ladder and the Lagrange rows against the host; a FROST ceremony
-     (n = 4, t = 3, 4 validators) and a reshare rotation (16 validators)
+     (n = 3, t = 2, 4 validators) and a reshare rotation (16 validators)
      end to end with the card engine on every node, their group keys
      recovered from t shares; a 1,024-lane share wave under the int8
      configuration (K4 Fp and Fr, never K1-K3; the default waves the
      reverse); the tuner's ceremony axes at the waves' lanes. Each wave's
      wall, lanes, launches and peak device memory;
- 10. every kernel timed at the four row counts its duty launched it at
+ 10. the node's duty workflow, in a process of its own (as a node boots;
+     `--node-sweep <slot>`): a 4-of-7, 16-validator cluster
+     (testutil/simnet.build_cluster) whose 7 nodes are tenants of ONE
+     core/cryptosvc.CryptoPlaneService over a SlotCoalescer (device
+     decode) over SlotCryptoPlane(make_mesh(), t=4), the tbls registry
+     holding the card's TorchImpl with seeded keys; the boot warm-up of
+     every pubshare and group pubkey, then the schedulers until all 7
+     nodes broadcast slot 0's attester duty (16 validators) and proposer
+     duty (randao, then the block) before their deadline, at --node-slot
+     seconds a slot: byte-equal signatures across the nodes, equal to the
+     host signature of the group secret recovered from t shares, no
+     missed duty in any tracker, no inline tbls call, nothing shed, K1-K3
+     only. Slot start to broadcast per duty (min, median, max over the
+     nodes), each flush's jobs, lanes, wall and tenants, the launches;
+ 11. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
      during phases 5-6), each beside its bound;
- 11. the kernels JSON line (with each kernel's launches in the full-width
-     plane slot, or in the int8 plane flush for K4-K6, and in the three
-     full-width DKG waves, or the int8 share wave for K4-K6), then the
-     result line.
+ 12. the kernels JSON line (with each kernel's launches in the full-width
+     plane slot, or in the int8 plane flush for K4-K6, in the three
+     full-width DKG waves, or the int8 share wave for K4-K6, and in the
+     node phase), then the result line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -360,7 +375,7 @@ def check_kernels(seed: int) -> dict:
 
 
 def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
-    """Phase 10: each kernel's time (C entry point alone, CUDA events over
+    """Phase 11: each kernel's time (C entry point alone, CUDA events over
     200 queued launches) at the DUTY_SHAPES row counts its duty launched it at
     most often, beside the bound. The operands stay in L2 across the
     launches, as on the duty, where each kernel's operands were written by
@@ -400,11 +415,16 @@ TUNER_VALUES = {
 }
 
 
+# the tuner's benches a value, cut from autotune.TUNE_REPS (5) to make
+# room for the node phase
+TUNER_REPS = 2
+
+
 def run_tuner(lanes: int, axis: str = "mxu_mont") -> None:
     """autotune.resolve on the card over one axis at `lanes` (the duty's or
-    the wave's lane count), with its profile in a scratch directory under
-    the build directory. Its timings, spread and choice are printed; the
-    phases set their configurations themselves."""
+    the wave's lane count), TUNER_REPS benches a value, with its profile in
+    a scratch directory under the build directory. Its timings, spread and
+    choice are printed; the phases set their configurations themselves."""
     import tempfile
     from pathlib import Path
 
@@ -415,13 +435,13 @@ def run_tuner(lanes: int, axis: str = "mxu_mont") -> None:
     with tempfile.TemporaryDirectory(dir=MK.BUILD_DIR) as tmp:
         res = autotune.resolve(
             "force", Path(tmp) / autotune.PROFILE_BASENAME,
-            lanes=lanes, candidates={axis: autotune.CANDIDATES[axis]},
+            lanes=lanes, reps=TUNER_REPS, candidates={axis: autotune.CANDIDATES[axis]},
         )
         prof = autotune.load_profile(Path(tmp) / autotune.PROFILE_BASENAME)
     on, off, spread = (res.timings[axis][k] * 1e3 for k in ("on", "off", "spread"))
     on_name, off_name = TUNER_VALUES[axis]
     log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {lanes} lanes "
-        f"(min of {autotune.TUNE_REPS}): {axis} on ({on_name}) {on:.3f} ms, off ({off_name}) {off:.3f} ms, "
+        f"(min of {TUNER_REPS}): {axis} on ({on_name}) {on:.3f} ms, off ({off_name}) {off:.3f} ms, "
         f"spread {spread:.3f} ms; choice {axis}={getattr(res.config, axis)}; "
         f"profile {prof['platform']} {prof['capability']} torch {prof['torch_version']} CUDA {prof['cuda_version']}")
     MK.reset_launches()
@@ -1083,8 +1103,12 @@ DKG_VALIDATORS = 10_000  # BASELINE config 4
 DKG_ME = 1  # the node whose round 2 the phase runs
 DKG_SAMPLE = 64  # lanes of each wave held against the host oracle
 DKG_INT8_LANES = 1024
-DKG_FROST = (4, 3, 4)  # the ceremony end to end: n, t, validators
-DKG_RESHARE = (4, 3, 16)  # the rotation: n, t, validators (bench_dkg.py's accelerator shape)
+# the ceremony end to end and the rotation: n, t, validators; cut from
+# (4, 3, 4) and bench_dkg.py's accelerator shape (4, 3, 16) to three nodes
+# to make room for the node phase (each node's round 2 is a few
+# launch-bound ladders whatever its lanes)
+DKG_FROST = (3, 2, 4)
+DKG_RESHARE = (3, 2, 16)
 DKG_CTX = b"chip-smoke cluster definition"
 G1_ONLY_IDLE = INT8_KERNELS + ("fp2_mul", "fp2_sqr")  # a G1 wave of the default configuration
 
@@ -1332,6 +1356,283 @@ def run_dkg(seed: int, validators: int = DKG_VALIDATORS) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the node's duty workflow on the card
+# ---------------------------------------------------------------------------
+
+NODE_N, NODE_T = 7, 4  # BASELINE config 2's 4-of-7 split
+NODE_VALIDATORS = 16  # a common DV cluster's size; the cluster's VCs sign on the host
+# the default --node-slot, s: slot 0's duties missed their deadline at 12
+# (mainnet) and 24 s and met it at 36 s with the block broadcast 88-142 s
+# into the 180 s window; 48 s (deadline 240 s) keeps a margin against that
+# spread between runs (PERF.md section 4)
+NODE_SLOT = 48.0
+NODE_SLOTS_PER_EPOCH = 32
+NODE_LIMIT = 4.0  # PERF.md section 2: slot start to broadcast, s
+NODE_BOOT = 5.0  # genesis this long after the cluster is built: the boot warm-up (1-3 s) runs first
+
+
+def run_node(seed: int, slot_duration: float) -> dict:
+    """A 4-of-7, 16-validator cluster's duties on the card, through the
+    node's entry points: `testutil.simnet.build_cluster(crypto_service=)`
+    wires 7 nodes as tenants node1..node7 of ONE `core/cryptosvc.
+    CryptoPlaneService` over a `SlotCoalescer` (device decode) over
+    `SlotCryptoPlane(make_mesh(), t=4)`; the tbls registry holds the
+    TorchImpl on the card, whose generate_secret_key draws from the seed.
+    The service warms every pubshare and group pubkey before genesis, as a
+    node's boot does; the schedulers then run (echo consensus, the simnet's
+    default) until all 7 nodes have broadcast slot 0's attester duty (all
+    16 validators) and its proposer duty (randao, then the block). Fails
+    unless every one is broadcast before its deadline with byte-equal
+    signatures on all nodes that equal the host signature of the group
+    secret (recovered from t shares), the trackers report no missed duty,
+    no inline tbls batch call ran, no submission was shed, and only the
+    default kernels launched. Returns the kernels' launches in the run."""
+    import asyncio
+    import statistics
+
+    import torch
+
+    from charon_tpu_torch import tbls
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.core.cryptoplane import SlotCoalescer
+    from charon_tpu_torch.core.cryptosvc import CryptoPlaneService
+    from charon_tpu_torch.core.eth2data import SignedData
+    from charon_tpu_torch.core.types import Duty, DutyType, pubkey_to_bytes
+    from charon_tpu_torch.crypto import bls, shamir
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.parallel import SlotCryptoPlane, make_mesh
+    from charon_tpu_torch.tbls.python_impl import PythonHost, int_to_sk, sk_to_int
+    from charon_tpu_torch.tbls.torch_impl import TorchImpl
+    from charon_tpu_torch.testutil.simnet import build_cluster
+
+    class SeededTorchImpl(TorchImpl):
+        """The registry's TorchImpl on the card, its secret keys drawn from
+        the seed; counts the inline crypto calls (none may run: the tenant
+        service carries every verify and recombine)."""
+
+        def __init__(self):
+            super().__init__()
+            self._rng = random.Random(f"node/{seed}")
+            self.inline: dict[str, int] = {}
+
+        def generate_secret_key(self) -> bytes:
+            return int_to_sk(bls.keygen(self._rng.randbytes(32)))
+
+        def _inline(self, name: str, *args):
+            self.inline[name] = self.inline.get(name, 0) + 1
+            return getattr(super(), name)(*args)
+
+        def verify(self, pubkey, data, sig):
+            return self._inline("verify", pubkey, data, sig)
+
+        def verify_batch(self, items):
+            return self._inline("verify_batch", items)
+
+        def verify_aggregate(self, pubkeys, data, sig):
+            return self._inline("verify_aggregate", pubkeys, data, sig)
+
+        def threshold_aggregate_batch(self, batch):
+            return self._inline("threshold_aggregate_batch", batch)
+
+        def aggregate_batch(self, groups):
+            return self._inline("aggregate_batch", groups)
+
+    KernelConfig().apply()
+    impl = SeededTorchImpl()
+    tbls.set_implementation(impl)
+    plane = SlotCryptoPlane(make_mesh(), t=NODE_T)
+    walls: dict = {}
+
+    def on_program(fam, seconds, lanes):
+        walls.setdefault(fam, []).append((seconds, lanes))
+
+    plane.on_program = on_program
+    stats: list = []
+
+    def on_flush(st):  # the coalescer's device thread, as each flush ends
+        stats.append(st)
+        log(f"node flush {len(stats)}: {st.jobs} jobs, {st.lanes} lanes, {st.flush_seconds:.3f} s, window "
+            f"{st.window:.3f} s, inflight {st.inflight}, ended {time.time() - clock.slot_start(0):.1f} s into slot 0, "
+            f"tenants {dict(st.tenant_lanes)}")
+
+    coal = SlotCoalescer(plane, impl=impl, stats_hook=on_flush)
+    svc = CryptoPlaneService(coal)
+    t0 = time.perf_counter()
+    cluster = build_cluster(
+        n=NODE_N, t=NODE_T, num_validators=NODE_VALIDATORS, slot_duration=slot_duration,
+        slots_per_epoch=NODE_SLOTS_PER_EPOCH, genesis_time=time.time() + NODE_BOOT, crypto_service=svc,
+    )
+    log(f"node: {NODE_N} nodes, {NODE_T}-of-{NODE_N}, {NODE_VALIDATORS} validators built in "
+        f"{time.perf_counter() - t0:.1f} s; slot {slot_duration} s, genesis in "
+        f"{cluster.beacon.genesis_time - time.time():.1f} s")
+    beacon, fork = cluster.beacon, cluster.fork
+    clock = beacon.clock()
+    slot = 0
+    att_duty, prop_duty = Duty(slot, DutyType.ATTESTER), Duty(slot, DutyType.PROPOSER)
+    deadline = clock.duty_deadline(att_duty)
+
+    def done() -> bool:
+        atts = sum(1 for a in beacon.attestations if a.data.slot == slot)
+        props = sum(1 for p, _ in beacon.proposals if p.slot == slot)
+        return atts >= NODE_N * NODE_VALIDATORS and props >= NODE_N
+
+    async def drive():
+        pubkeys = [p for pubs in cluster.pubshares_by_idx.values() for p in pubs.values()]
+        pubkeys += [pubkey_to_bytes(pk) for pk in cluster.group_pubkeys]
+        warm = await svc.coalescer.warm_caches(pubkeys=pubkeys)
+        log(f"node boot warm-up: {json.dumps(warm)}; genesis in {beacon.genesis_time - time.time():.1f} s")
+        if warm["pubkey"]["device"] != len(set(pubkeys)):
+            raise AssertionError(f"node warm-up: {warm}")
+        walls.clear()
+        stats.clear()
+        MK.reset_launches()
+        tasks = [asyncio.create_task(node.scheduler.run()) for node in cluster.nodes]
+        beat = time.time()
+        try:
+            while not done():
+                if time.time() > beat + 10:
+                    beat = time.time()
+                    log(f"node: {beat - clock.slot_start(slot):.1f} s into slot {slot}: "
+                        f"{sum(1 for a in beacon.attestations if a.data.slot == slot)} attestations and "
+                        f"{sum(1 for p, _ in beacon.proposals if p.slot == slot)} blocks broadcast")
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"node: slot {slot}'s duties missed their deadline ({deadline - clock.slot_start(slot):.0f} s "
+                        f"after the slot start): {sum(1 for a in beacon.attestations if a.data.slot == slot)} "
+                        f"attestations and {sum(1 for p, _ in beacon.proposals if p.slot == slot)} blocks broadcast"
+                    )
+                await asyncio.sleep(0.05)
+            torch.cuda.synchronize()
+            run_launches = dict(MK.LAUNCHES)
+            reports = {
+                (node.share_idx, d.type.name): await node.tracker.duty_expired(d)
+                for node in cluster.nodes
+                for d in (att_duty, Duty(slot, DutyType.RANDAO), prop_duty)
+            }
+        finally:
+            for node in cluster.nodes:
+                node.scheduler.stop()
+            await asyncio.gather(*tasks, return_exceptions=True)
+        return run_launches, reports
+
+    try:
+        t0 = time.perf_counter()
+        launches, reports = asyncio.run(drive())
+        log(f"node: slot {slot}'s attester and proposer duties broadcast by all {NODE_N} nodes; "
+            f"run {time.perf_counter() - t0:.1f} s")
+    finally:
+        svc.close()
+        coal.close()
+        tbls.set_implementation(None)
+
+    # the broadcasts: one signature per duty across the nodes, the host's
+    def group_secret(pk) -> bytes:
+        shares = {i: sk_to_int(cluster.share_keys[i - 1][pk]) for i in range(1, NODE_T + 1)}
+        return int_to_sk(shamir.recover_secret(shares))
+
+    host = PythonHost()
+    epoch = slot // NODE_SLOTS_PER_EPOCH
+    atts = [a for a in beacon.attestations if a.data.slot == slot]
+    by_index: dict[int, set] = {}
+    for a in atts:
+        by_index.setdefault(a.data.index, set()).add((a.data.hash_tree_root(), a.signature))
+    if len(by_index) != NODE_VALIDATORS or any(len(v) != 1 for v in by_index.values()):
+        raise AssertionError("node: the nodes' attestations differ")
+    committee = sorted(beacon.validators.items())  # committee index i: the i-th validator by pubkey
+    for index, ((_, sig),) in by_index.items():
+        pk = committee[index][0]
+        att = next(a for a in atts if a.data.index == index)
+        root = SignedData("attestation", att).signing_root(fork, epoch)
+        if sig != host.sign(group_secret(pk), root):
+            raise AssertionError(f"node: validator {index}'s attestation is not the group secret's signature")
+    props = [(p, sig) for p, sig in beacon.proposals if p.slot == slot]
+    if len({(p.hash_tree_root(), sig) for p, sig in props}) != 1:
+        raise AssertionError("node: the nodes' blocks differ")
+    proposal, psig = props[0]
+    proposer = committee[slot % NODE_VALIDATORS][0]
+    if psig != host.sign(group_secret(proposer), SignedData("block", proposal).signing_root(fork, epoch)):
+        raise AssertionError("node: the block's signature is not the group secret's")
+    randao = host.sign(group_secret(proposer), SignedData("randao", epoch).signing_root(fork, epoch))
+    if proposal.block.body.randao_reveal != randao:
+        raise AssertionError("node: the block's randao reveal is not the group secret's")
+    missed = {k: (r.failed_step, r.reason, len(r.failed_pubkeys)) for k, r in reports.items()
+              if not r.success or r.failed_pubkeys}
+    if missed:
+        raise AssertionError(f"node: the trackers report missed duties {missed}")
+    if any(impl.inline.values()):
+        raise AssertionError(f"node: inline tbls calls ran: {impl.inline}")
+    shed = {f"node{i}": svc.tenant(f"node{i}").shed for i in range(1, NODE_N + 1)}
+    if any(shed.values()):
+        raise AssertionError(f"node: the service shed submissions: {shed}")
+    _check_launches(launches, "node", DEFAULT_KERNELS, INT8_KERNELS)
+
+    # slot start to broadcast, per duty and node
+    start = clock.slot_start(slot)
+    lat: dict[str, list] = {}
+    for node in cluster.nodes:
+        for duty in (att_duty, prop_duty):
+            delays = [d for dd, d in node.bcast.broadcast_delay if dd == duty]
+            lat.setdefault(duty.type.name.lower(), []).append(max(delays))
+    for name, xs in lat.items():
+        log(f"node {name}: slot start to broadcast over {NODE_N} nodes: min {min(xs):.3f} s, median "
+            f"{statistics.median(xs):.3f} s, max {max(xs):.3f} s (limit {NODE_LIMIT} s; slot {slot_duration} s, "
+            f"deadline {deadline - start:.0f} s)")
+    log(f"node: {len(stats)} flushes ({coal.flushes} in all, {coal.held_flushes} held for a busy lane), "
+        f"{coal.lanes_flushed} lanes, failed {coal.failed_flushes}; "
+        "programs " + "; ".join(f"{fam} x{len(r)} {sum(s for s, _ in r):.3f} s over {sum(n for _, n in r)} lanes"
+                                for fam, r in sorted(walls.items())))
+    log("node: tenants' lanes", json.dumps({
+        tid: [svc.tenant(tid).admitted_jobs, svc.tenant(tid).completed_lanes] for tid in sorted(shed)
+    }), "(jobs, lanes)")
+    log("node launches:", json.dumps(launches))
+    MK.reset_launches()
+    return {name: launches[name] for name in KERNELS}
+
+
+NODE_LAUNCHES = "node_launches"  # the key of the sweep's launch line
+
+
+def node_sweep(seed: int, slots: list) -> int:
+    """The node phase alone at each slot duration in turn; a missed
+    deadline is logged and the next duration runs. Each pass prints its
+    launches as one JSON line. 0 if any passed."""
+    passed = []
+    for slot in slots:
+        t0 = time.perf_counter()
+        try:
+            launches = run_node(seed, slot)
+        except AssertionError as e:
+            log(f"node sweep: slot {slot} s FAILED in {time.perf_counter() - t0:.1f} s: {e}")
+            time.sleep(30)  # the failed run's last flush leaves the device lane
+            continue
+        passed.append(slot)
+        print(json.dumps({NODE_LAUNCHES: launches}), flush=True)
+        log(f"node sweep: slot {slot} s passed in {time.perf_counter() - t0:.1f} s")
+    log(f"node sweep: passed at {passed} of {slots}")
+    return 0 if passed else 1
+
+
+def run_node_process(seed: int, slot: float) -> dict:
+    """Phase 10 in a process of its own (`--node-sweep <slot>`), as a node
+    boots: a fresh process, with none of the earlier phases' state (run
+    in this process after them, its flushes ran slower than in a fresh
+    one and slot 0 missed its deadline; PERF.md section 6). Its output is
+    passed through; returns the launches it reports."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--node-sweep", str(slot), "--seed", str(seed)]
+    launches = None
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
+        for line in proc.stdout:
+            if line.startswith("{" + json.dumps(NODE_LAUNCHES)):
+                launches = json.loads(line)[NODE_LAUNCHES]
+            else:
+                print("  node process " + line, end="", flush=True)
+        rc = proc.wait()
+    if rc != 0 or launches is None:
+        raise AssertionError(f"node phase: its process exited {rc}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--validators", type=int, default=1024, help="each duty's validators")
@@ -1340,6 +1641,12 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--python-decode", action="store_true",
         help="after the int8 duty, run it again with the host decode (decode_mode python) for its stage times",
+    )
+    ap.add_argument("--node-slot", type=float, default=NODE_SLOT, help="the node phase's slot duration, s")
+    ap.add_argument(
+        "--node-sweep", type=lambda v: [float(x) for x in v.split(",")], default=None, metavar="S1,S2,...",
+        help="build the kernels and run only the node phase, once at each slot duration (s), reporting each "
+             "pass or missed deadline; prints no result line",
     )
     args = ap.parse_args(argv)
     if args.validators < 16:
@@ -1360,12 +1667,15 @@ def main(argv=None) -> int:
     log(subprocess.run([MK.nvcc_path(), "--version"], check=True, capture_output=True, text=True).stdout.strip().splitlines()[-1])
 
     t0 = time.perf_counter()
-    for source, report in MK.build(force=True).items():
+    # the node sweep reuses the libraries a parent run built (same sources)
+    for source, report in MK.build(force=not args.node_sweep).items():
         log(f"nvcc {source}:")
         for line in report.splitlines():
             if "ptxas info" in line or "spill" in line:
                 log("  " + line.strip())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    if args.node_sweep:
+        return node_sweep(args.seed, args.node_sweep)
     count_imma()
 
     results = check_kernels(args.seed)
@@ -1390,6 +1700,7 @@ def main(argv=None) -> int:
     profile_device(impl, batch, "default")
     plane_launches = run_plane(vals, duty_sigs, args.seed)
     dkg_launches = run_dkg(args.seed)
+    node_launches = run_node_process(args.seed, args.node_slot)
     duty_rows = {name: (int8_rows if name in INT8_KERNELS else default_rows)[name] for name in KERNELS}
     time_duty_shapes(results, duty_rows, args.seed)
 
@@ -1399,7 +1710,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"charon_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[name], **results[name], "library_ms": None,
-            "plane_launches": plane_launches[name], "dkg_launches": dkg_launches[name], "status": "ported",
+            "plane_launches": plane_launches[name], "dkg_launches": dkg_launches[name],
+            "node_launches": node_launches[name], "status": "ported",
         })
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(json.dumps({

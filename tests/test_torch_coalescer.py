@@ -362,6 +362,45 @@ def test_window_grows_under_load_and_decays_when_idle():
     assert plane.current_window == pytest.approx(base)
 
 
+class SlowPlane(FakePlane):
+    """FakePlane whose verify program holds the device lane `hold` s."""
+
+    def __init__(self, t, hold):
+        super().__init__(t)
+        self.hold = hold
+
+    def verify_host(self, pks, msgs, sigs, rng=None):
+        time.sleep(self.hold)
+        return super().verify_host(pks, msgs, sigs, rng)
+
+
+@pytest.mark.parametrize("decode_workers", [0, 2])
+def test_window_waits_for_a_busy_device_lane(decode_workers):
+    """Windows whose time is up while the lane runs a flush stay open
+    until it is free: three submissions spaced wider than the window,
+    all made while the first flush holds the lane, ride ONE second flush
+    (the JAX package would queue one flush each)."""
+    stats: list = []
+    plane = SlowPlane(T, hold=0.4)
+    coal = coalescer(plane, window=0.01, window_max=0.01, stats_hook=stats.append, decode_workers=decode_workers)
+    items = _sig_items(4)
+
+    async def main():
+        first = asyncio.create_task(coal.verify(items[:1]))
+        await asyncio.sleep(0.1)  # the first flush holds the lane
+        later = []
+        for item in items[1:]:
+            later.append(asyncio.create_task(coal.verify([item])))
+            await asyncio.sleep(0.05)  # wider than the window
+        return await asyncio.gather(first, *later)
+
+    assert asyncio.run(main()) == [[True]] * 4
+    coal.close()
+    assert coal.flushes == 2 and plane.verify_calls == 2
+    assert coal.held_flushes == 1
+    assert [(st.jobs, st.lanes, st.inflight) for st in stats] == [(1, 1, 1), (3, 3, 1)]
+
+
 def test_deadline_pulls_flush_earlier():
     plane = coalescer(FakePlane(T), window=5.0, window_min=0.001)
     items = _sig_items(1)

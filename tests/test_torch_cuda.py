@@ -4,7 +4,9 @@ PyTorch version on the same CUDA tensors, K4-K6 against K1-K3, every
 kernel at the edges of its tiles and waves and on operands off 16-byte
 words (K4-K6 against K1-K3 at both kernels' edges), and TorchImpl's
 verify/aggregate, the slot plane and the DKG waves on the card against
-the host oracle or the CPU engine, under both kernel configurations.
+the host oracle or the CPU engine, under both kernel configurations, and
+an attester duty of the in-process cluster through the tenant service on
+the card against the same duty on the CPU plane.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where those are absent:
@@ -324,3 +326,72 @@ def test_msm_segmented_with_hundreds_of_segments_on_card(card, window):
     for p, k, s in zip(pts, ks, seg):
         want[s] = g1g2.g1_add(want[s], g1g2.g1_mul(p, k))
     assert got == want
+
+
+def test_attester_duty_through_the_service_on_card_equals_the_cpu_plane(card):
+    """One attester duty of a 3-of-4, 1-validator cluster whose nodes are
+    tenants of a CryptoPlaneService over the card's slot plane, against
+    the same cluster (same seeded keys, same slot) on the CPU plane: every
+    node of both broadcasts the same attestation bytes, and the registry's
+    host backend (no batch calls) is never asked to verify or recombine."""
+    import asyncio
+    import time
+
+    from charon_tpu_torch import tbls
+    from charon_tpu_torch.core.cryptoplane import SlotCoalescer
+    from charon_tpu_torch.core.cryptosvc import CryptoPlaneService
+    from charon_tpu_torch.crypto import bls
+    from charon_tpu_torch.eth2util import ssz
+    from charon_tpu_torch.parallel import SlotCryptoPlane, make_mesh
+    from charon_tpu_torch.tbls.python_impl import int_to_sk
+    from charon_tpu_torch.tbls.torch_impl import TorchImpl
+    from charon_tpu_torch.testutil.simnet import build_cluster
+
+    class SeededHost(PythonHost):
+        def __init__(self, seed):
+            self._rng = random.Random(seed)
+
+        def generate_secret_key(self):
+            return int_to_sk(bls.keygen(self._rng.randbytes(32)))
+
+    slot_s = 120.0
+    saved = tbls._current
+
+    async def run():
+        genesis = time.time() - slot_s / 3 + 1.0  # slot 0's attester duty is due now
+        services, clusters = [], []
+        for device in (card, torch.device("cpu")):
+            impl = TorchImpl(device=device)
+            coal = SlotCoalescer(SlotCryptoPlane(make_mesh([device]), t=3), window=0.5, impl=impl)
+            svc = CryptoPlaneService(coal)
+            tbls.set_implementation(SeededHost(seed=3))
+            cluster = build_cluster(n=4, t=3, num_validators=1, slot_duration=slot_s, genesis_time=genesis,
+                                    crypto_service=svc)
+            await coal.warm_caches(pubkeys=[p for pubs in cluster.pubshares_by_idx.values() for p in pubs.values()])
+            services.append((svc, coal))
+            clusters.append(cluster)
+        assert clusters[0].group_pubkeys == clusters[1].group_pubkeys
+        tasks = [asyncio.create_task(node.scheduler.run()) for c in clusters for node in c.nodes]
+
+        def atts(c):
+            return [a for a in c.beacon.attestations if a.data.slot == 0]
+
+        try:
+            while not all(len(atts(c)) == 4 for c in clusters):
+                await asyncio.sleep(0.1)
+        finally:
+            for c in clusters:
+                for node in c.nodes:
+                    node.scheduler.stop()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for svc, coal in services:
+                svc.close()
+                coal.close()
+        card_bytes = {(ssz.serialize(a), a.signature) for a in atts(clusters[0])}
+        assert len(card_bytes) == 1
+        assert {(ssz.serialize(a), a.signature) for a in atts(clusters[1])} == card_bytes
+
+    try:
+        asyncio.run(asyncio.wait_for(run(), timeout=1200))
+    finally:
+        tbls._current = saved
