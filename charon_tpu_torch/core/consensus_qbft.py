@@ -82,8 +82,7 @@ class QBFTConsensus:
         provided, every outbound message is signed over qbft.msg_digest and
         every inbound message — and each of its justification messages — is
         verified against the per-index cluster pubkeys before the engine
-        counts it. The port raises NotImplementedError for them until
-        app/k1util.py is ported.
+        counts it.
 
         `timer` selects the round-timer strategy: "inc" (increasing,
         configured by round_timeout/round_increase) or "eager_dlinear"
@@ -93,12 +92,6 @@ class QBFTConsensus:
         app/featureset/featureset.go:53 (stable → dlinear is the
         cluster default)."""
         self.net = net
-        if privkey is not None or pubkeys is not None:
-            # message signing is k1 (secp256k1) over app/k1util
-            raise NotImplementedError(
-                "QBFTConsensus(privkey=, pubkeys=) needs app/k1util.py, not "
-                "ported yet (ROADMAP item 13b)"
-            )
         self.node_idx = net.attach(self)
         self.tracer = tracer
         self._privkey = privkey

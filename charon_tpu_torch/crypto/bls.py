@@ -1,9 +1,9 @@
-"""BLS key generation and signing over BLS12-381 (eth2 flavour: pubkeys
-G1, signatures G2) — the host half of the JAX package's crypto/bls.py.
+"""BLS signatures over BLS12-381 (eth2 flavour: pubkeys G1, signatures G2).
 
-Verification is not here: the port verifies on the device
-(charon_tpu_torch/ops/pairing.py) and its tests hold it against the JAX
-package's pure-Python pairing.
+Implements the draft-irtf-cfrg-bls-signature operations the reference's tbls
+facade exposes (ref: tbls/tbls.go:28-69): KeyGen, SkToPk, Sign, Verify,
+Aggregate, FastAggregateVerify — in the proof-of-possession ciphersuite used
+by eth2.
 """
 
 from __future__ import annotations
@@ -13,8 +13,21 @@ import hmac
 import os
 
 from charon_tpu_torch.crypto.fields import R
-from charon_tpu_torch.crypto.g1g2 import G1_GEN, g1_mul, g2_mul
+from charon_tpu_torch.crypto.g1g2 import (
+    G1_GEN,
+    g1_add,
+    g1_from_bytes,
+    g1_mul,
+    g1_neg,
+    g1_to_bytes,
+    g2_add,
+    g2_from_bytes,
+    g2_mul,
+    g2_to_bytes,
+)
 from charon_tpu_torch.crypto.h2c import DST_POP, hash_to_g2
+from charon_tpu_torch.crypto.pairing import multi_miller
+from charon_tpu_torch.crypto.fields import fp12_is_one
 
 KEYGEN_SALT = b"BLS-SIG-KEYGEN-SALT-"
 
@@ -56,3 +69,74 @@ def sk_to_pk(sk: int):
 
 def sign(sk: int, msg: bytes, dst: bytes = DST_POP):
     return g2_mul(hash_to_g2(msg, dst), sk)
+
+
+def verify(pk, msg: bytes, sig, dst: bytes = DST_POP) -> bool:
+    """e(-G1, sig) * e(pk, H(m)) == 1.
+
+    Uses the production projective pairing with the x-chain final
+    exponentiation (pairing_fast) — ~20x faster than the affine oracle and
+    validated against it (tests/test_pairing_fast.py)."""
+    if pk is None or sig is None:
+        return False
+    from charon_tpu_torch.crypto.pairing_fast import is_gt_one, multi_pairing_fast
+
+    h = hash_to_g2(msg, dst)
+    return is_gt_one(multi_pairing_fast([(sig, g1_neg(G1_GEN)), (h, pk)]))
+
+
+def aggregate_sigs(sigs):
+    out = None
+    for s in sigs:
+        out = g2_add(out, s)
+    return out
+
+
+def aggregate_pks(pks):
+    out = None
+    for pk in pks:
+        out = g1_add(out, pk)
+    return out
+
+
+def fast_aggregate_verify(pks, msg: bytes, sig, dst: bytes = DST_POP) -> bool:
+    """All signers signed the same message (eth2 aggregate attestations)."""
+    if not pks:
+        return False
+    return verify(aggregate_pks(pks), msg, sig, dst)
+
+
+def aggregate_verify(pks, msgs, sig, dst: bytes = DST_POP) -> bool:
+    """Distinct messages: e(-G1, sig) * prod e(pk_i, H(m_i)) == 1."""
+    if not pks or len(pks) != len(msgs) or sig is None:
+        return False
+    from charon_tpu_torch.crypto.pairing_fast import is_gt_one, multi_pairing_fast
+
+    pairs = [(sig, g1_neg(G1_GEN))]
+    for pk, msg in zip(pks, msgs):
+        if pk is None:
+            return False
+        pairs.append((hash_to_g2(msg, dst), pk))
+    return is_gt_one(multi_pairing_fast(pairs))
+
+
+# --- byte-level convenience (the tbls wire types) ---
+
+
+def sk_to_bytes(sk: int) -> bytes:
+    return (sk % R).to_bytes(32, "big")
+
+
+def sk_from_bytes(data: bytes) -> int:
+    if len(data) != 32:
+        raise ValueError("secret key must be 32 bytes")
+    sk = int.from_bytes(data, "big")
+    if not 0 < sk < R:
+        raise ValueError("secret key out of range")
+    return sk
+
+
+pk_to_bytes = g1_to_bytes
+pk_from_bytes = g1_from_bytes
+sig_to_bytes = g2_to_bytes
+sig_from_bytes = g2_from_bytes

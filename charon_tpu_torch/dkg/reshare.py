@@ -2,8 +2,7 @@
 proactive rotation over many validators at once.
 
 The port of charon_tpu/dkg/reshare.py, with its imports rewritten to the
-port's crypto/ copies; the keystore hand-off (`write_reshare_outputs`)
-belongs with node wiring and is not here.
+port's crypto/ and eth2util/ copies.
 
 Protocol (Desmedt–Jajodia resharing, the standard re-randomization of a
 Shamir sharing without reconstructing the secret): each DEALER i from
@@ -36,7 +35,9 @@ Secret material (old shares, dealt polynomials, sub-shares, new shares)
 never leaves the host; only commitments and derived public shares ride
 the device. Abort semantics: ANY verification failure raises
 ReshareError before any output is assembled — there is no partial
-success, so a crash mid-ceremony leaves the old key state untouched.
+success, and disk output (write_reshare_outputs) stages into a temp
+directory and renames, so a crash mid-ceremony leaves the old key
+state untouched.
 """
 
 from __future__ import annotations
@@ -485,3 +486,45 @@ class _MemResharePort:
             if self.idx in net._shares[i]
         }
         return dict(net._bcasts), my_shares
+
+
+# ---------------------------------------------------------------------------
+# Atomic disk handoff
+# ---------------------------------------------------------------------------
+
+
+def write_reshare_outputs(data_dir, results, pubshare_hexes=None):
+    """Persist post-reshare keystores with NO torn intermediate state:
+    everything stages into a sibling temp directory, then one rename
+    swaps it in (the old validator_keys stays intact until the swap).
+    Returns the path of the replaced (stale) key directory so callers
+    can archive or shred it."""
+    import os
+    from pathlib import Path
+
+    from charon_tpu_torch.eth2util import keystore
+
+    data_dir = Path(data_dir)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    share_secrets = [
+        (r.secret_share % (1 << 256)).to_bytes(32, "big") for r in results
+    ]
+    stage = data_dir / f".reshare-stage-{os.getpid()}"
+    if stage.exists():
+        import shutil
+
+        shutil.rmtree(stage)
+    # keystore I/O IS the reshare's output: shares leave only as
+    # EIP-2335-encrypted keystores
+    # lint: allow(secret-flow)
+    keystore.store_keys(share_secrets, stage, pubkeys=pubshare_hexes)
+    final = data_dir / "validator_keys"
+    stale = data_dir / "validator_keys.pre-reshare"
+    if stale.exists():
+        import shutil
+
+        shutil.rmtree(stale)
+    if final.exists():
+        os.replace(final, stale)
+    os.replace(stage, final)
+    return stale if stale.exists() else None

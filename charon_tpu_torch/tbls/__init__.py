@@ -7,8 +7,10 @@ workflow calls, which dispatch to the implementation installed with
 `set_implementation`. The port keeps its own copy so that it imports
 nothing of the JAX package. Backends here:
 
-  * python_impl — the host half of the pure-Python backend (key
-                  generation, Shamir split/recover, signing, decode);
+  * python_impl — PythonImpl, the pure-Python bigint backend
+                  (charon_tpu_torch/crypto), the host reference;
+  * native_impl — NativeImpl, the C++ host backend (ctypes over
+                  native/libcharon_native.so);
   * torch_impl  — TorchImpl, the batched PyTorch/CUDA engine
                   (charon_tpu_torch/ops) behind the batch APIs.
 
@@ -18,7 +20,8 @@ G2). All byte values are ZCash-format compressed points.
 
 The default implementation is `TorchImpl()` on the CUDA card, built on
 first use; on a host without a card `get_implementation()` raises (there
-is no host fallback): a CPU caller installs its backend first.
+is no host fallback): a CPU caller installs PythonImpl or NativeImpl
+first.
 """
 
 from __future__ import annotations

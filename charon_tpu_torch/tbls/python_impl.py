@@ -1,23 +1,23 @@
-"""Host half of the pure-Python tbls backend: key generation, Shamir
-split/recover, signing, and wire decode (the JAX package's
-tbls/python_impl.py without verification — the port verifies on the
-device, tbls/torch_impl.py).
+"""Pure-Python tbls backend over charon_tpu_torch/crypto (the host reference).
 
-Secret material never leaves the host: TorchImpl delegates these
-operations here and ships only public points to the device.
+Plays the role the herumi backend plays in the reference
+(ref: tbls/herumi.go) — the trusted, simple implementation every other
+backend is validated against (ref: tbls/tbls_test.go:209 randomized
+cross-impl suite; ours is tests/test_tbls.py).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Mapping
+from typing import Mapping, Sequence
 
-from charon_tpu_torch.crypto import bls, g1g2, shamir
+from charon_tpu_torch.crypto import bls, g1g2, h2c, shamir
 from charon_tpu_torch.crypto.fields import R
 from charon_tpu_torch.tbls import (
     PRIVATE_KEY_LEN,
     PUBLIC_KEY_LEN,
     SIGNATURE_LEN,
+    Implementation,
     TblsError,
 )
 
@@ -58,9 +58,7 @@ def sig_to_point(sig: bytes, subgroup_check: bool = True):
         raise TblsError(str(e)) from e
 
 
-class PythonHost:
-    """The secret-key half of the tbls contract, on host bigints."""
-
+class PythonImpl(Implementation):
     def generate_secret_key(self) -> bytes:
         return int_to_sk(bls.keygen(os.urandom(32)))
 
@@ -81,3 +79,45 @@ class PythonHost:
 
     def sign(self, secret: bytes, data: bytes) -> bytes:
         return g1g2.g2_to_bytes(bls.sign(sk_to_int(secret), data))
+
+    def verify(self, pubkey: bytes, data: bytes, sig: bytes) -> None:
+        pk = pubkey_to_point(pubkey)
+        s = sig_to_point(sig)
+        if s is None:
+            raise TblsError("infinite signature")
+        if not bls.verify(pk, data, s):
+            raise TblsError("signature verification failed")
+
+    def verify_aggregate(self, pubkeys: Sequence[bytes], data: bytes, sig: bytes) -> None:
+        if not pubkeys:
+            raise TblsError("no public keys")
+        pts = [pubkey_to_point(pk) for pk in pubkeys]
+        s = sig_to_point(sig)
+        if s is None:
+            raise TblsError("infinite signature")
+        if not bls.fast_aggregate_verify(pts, data, s):
+            raise TblsError("aggregate signature verification failed")
+
+    def threshold_aggregate(self, partials: Mapping[int, bytes]) -> bytes:
+        if not partials:
+            raise TblsError("no partial signatures")
+        pts = {}
+        for idx, sig in partials.items():
+            if idx <= 0:
+                raise TblsError("share indices are 1-based")
+            pt = sig_to_point(sig)
+            if pt is None:
+                raise TblsError("infinite partial signature")
+            pts[idx] = pt
+        return g1g2.g2_to_bytes(shamir.threshold_aggregate_g2(pts))
+
+    def aggregate(self, sigs: Sequence[bytes]) -> bytes:
+        if not sigs:
+            raise TblsError("no signatures")
+        pts = []
+        for sig in sigs:
+            pt = sig_to_point(sig)
+            if pt is None:
+                raise TblsError("infinite signature")
+            pts.append(pt)
+        return g1g2.g2_to_bytes(bls.aggregate_sigs(pts))

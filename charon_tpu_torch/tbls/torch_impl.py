@@ -34,7 +34,7 @@ from typing import Mapping, NamedTuple, Sequence
 from charon_tpu_torch.crypto import g1g2, h2c
 from charon_tpu_torch.ops.blsops import BlsEngine
 from charon_tpu_torch.tbls import Implementation, TblsError
-from charon_tpu_torch.tbls.python_impl import PythonHost, sig_to_point
+from charon_tpu_torch.tbls.python_impl import PythonImpl, sig_to_point
 
 
 def _decode_pubkey_point(pubkey: bytes):
@@ -133,7 +133,7 @@ class TorchImpl(Implementation):
         self.engine = BlsEngine(device)
         self.verify_inputs = verify_inputs
         self.decode_mode = decode_mode
-        self._host = PythonHost()
+        self._host = PythonImpl()
         # Decompressed pubkeys and hashed messages cached by their bytes
         # (cluster pubshares and duty roots are small recurring sets).
         self.pubkey_points = PointCache(_decode_pubkey_point, 65536)

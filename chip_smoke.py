@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8] [--python-decode] [--node-slot 48]
     python3 chip_smoke.py --node-sweep 12,24,36   # the kernel build and the node phase alone, at each slot
+    python3 chip_smoke.py --ceremony              # the kernel build and phase 9's cluster ceremony alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -71,10 +72,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      the pubshare wave (width 28 against [s_j]G), every commitment and nonce
      point built on the card, 64 seeded lanes of each held against the host
      oracle, one forged share and one forged proof the only lanes flagged;
-     the G2 ladder and the Lagrange rows against the host; a FROST ceremony
-     (n = 3, t = 2, 4 validators) and a reshare rotation (16 validators)
-     end to end with the card engine on every node, their group keys
-     recovered from t shares; a 1,024-lane share wave under the int8
+     the G2 ladder and the Lagrange rows against the host; the cluster
+     ceremony (dkg/ceremony.run_dkg, the `charon dkg` path): a cluster
+     definition signed by 3 operators' k1 keys (t = 2, 1 validator,
+     mainnet's fork version), every node's run_dkg in one event loop with
+     the card engine for FROST and TorchImpl() on the card in the tbls
+     registry for the deposit, builder-registration and lock signature
+     rounds (threshold_aggregate_batch, verify, aggregate,
+     verify_aggregate), then ClusterLock.verify of node 0's
+     cluster-lock.json through that TorchImpl: equal locks on every node,
+     t shares recover each group key, the pubshares match, the keystores
+     decrypt to the shares, the lock and each deposit signature accepted
+     by the port's PythonImpl on the host, a flipped byte of the aggregate
+     signature and a changed deposit amount refused by both backends, K1
+     Fp, K1 Fr, K2 and K3 launched and K4-K6 not; the walls of FROST, of
+     the three signature rounds and of the lock verify, and the tbls calls
+     by kind (--ceremony runs the kernel build and this ceremony alone); a
+     reshare rotation (16 validators) end to end with the card engine on
+     every node, its group keys recovered from t shares; a 1,024-lane
+     share wave under the int8
      configuration (K4 Fp and Fr, never K1-K3; the default waves the
      reverse); the tuner's ceremony axes at the waves' lanes. Each wave's
      wall, lanes, launches and peak device memory;
@@ -1103,12 +1119,18 @@ DKG_VALIDATORS = 10_000  # BASELINE config 4
 DKG_ME = 1  # the node whose round 2 the phase runs
 DKG_SAMPLE = 64  # lanes of each wave held against the host oracle
 DKG_INT8_LANES = 1024
-# the ceremony end to end and the rotation: n, t, validators; cut from
-# (4, 3, 4) and bench_dkg.py's accelerator shape (4, 3, 16) to three nodes
-# to make room for the node phase (each node's round 2 is a few
-# launch-bound ladders whatever its lanes)
-DKG_FROST = (3, 2, 4)
+# the rotation: n, t, validators; cut from bench_dkg.py's accelerator shape
+# (4, 3, 16) to three nodes to make room for the node phase (each node's
+# round 2 is a few launch-bound ladders whatever its lanes)
 DKG_RESHARE = (3, 2, 16)
+# the cluster ceremony (dkg/ceremony.run_dkg): n, t, validators. Every tbls
+# call on the card is a few launch-bound programs whatever its lanes; with 2
+# validators (the fewest that make the lock's signature an aggregate across
+# validators) the whole script ran 907-1047 s against its 950 s aim, so the
+# ceremony is cut to 1 (each node's verifies go from 4 to 2)
+DKG_CEREMONY = (3, 2, 1)
+MAINNET_FORK = "0x00000000"
+TBLS_CALLS = ("sign", "verify", "threshold_aggregate_batch", "aggregate", "verify_aggregate")
 DKG_CTX = b"chip-smoke cluster definition"
 G1_ONLY_IDLE = INT8_KERNELS + ("fp2_mul", "fp2_sqr")  # a G1 wave of the default configuration
 
@@ -1163,11 +1185,11 @@ def _flagged(name: str, lhs: list, rhs: list, want: list) -> None:
 
 def run_dkg(seed: int, validators: int = DKG_VALIDATORS) -> dict:
     """One node's round-2 verification waves of a 4-of-7 FROST DKG over
-    `validators` validators (BASELINE config 4) on the card, then a FROST
-    ceremony and a reshare rotation end to end through the port's dkg/
-    modules, an int8 share wave and the tuner's ceremony axes. Returns each
-    kernel's launches over the three full-width waves (the int8 wave's for
-    K4-K6)."""
+    `validators` validators (BASELINE config 4) on the card, then the
+    cluster ceremony (run_ceremony) and a reshare rotation end to end
+    through the port's dkg/ modules, an int8 share wave and the tuner's
+    ceremony axes. Returns each kernel's launches over the three full-width
+    waves and the ceremony (the int8 wave's for K4-K6)."""
     import asyncio
 
     from charon_tpu_torch.core.autotune import KernelConfig
@@ -1273,29 +1295,8 @@ def run_dkg(seed: int, validators: int = DKG_VALIDATORS) -> dict:
             if coeffs[j] != num * pow(den, -1, R) % R:
                 raise AssertionError(f"DKG lagrange_coeffs_batch: row {row} at {x} differs")
 
-    # a FROST ceremony end to end, the card engine on every node
-    fn_, ft_, fv_ = DKG_FROST
-
-    async def frost_ceremony():
-        net = frost.MemFrostTransport(fn_)
-        return await asyncio.gather(*(
-            frost.run_frost_parallel(net.participant(i), i, fn_, ft_, fv_, DKG_CTX, engine=engine)
-            for i in range(1, fn_ + 1)
-        ))
-
-    res, _ = _wave("frost", lambda: asyncio.run(frost_ceremony()), fn_ * fv_,
-                   ("mont_mul_fp", "mont_mul_fr"), G1_ONLY_IDLE, walls)
-    for val in range(fv_):
-        ref = res[0][val]
-        if any(r[val].group_pubkey != ref.group_pubkey or r[val].pubshares != ref.pubshares for r in res):
-            raise AssertionError(f"DKG frost: nodes disagree on validator {val}'s keys")
-        secret = shamir.recover_secret({i + 1: res[i][val].secret_share for i in range(ft_)})
-        if g1g2.g1_mul(G, secret) != ref.group_pubkey or any(
-            g1g2.g1_mul(G, res[i][val].secret_share) != ref.pubshares[i + 1] for i in range(fn_)
-        ):
-            raise AssertionError(f"DKG frost: validator {val}'s shares do not match its keys")
-    log(f"dkg frost: {fn_} nodes, t = {ft_}, {fv_} validators: every node derived the same keys, "
-        f"t shares recover each group key")
+    # the cluster ceremony end to end: FROST, the signature rounds and the lock
+    ceremony_launches = run_ceremony(engine, seed, walls)
 
     # a reshare rotation end to end (bench_dkg.py's accelerator shape)
     rn_, rt_, rv_ = DKG_RESHARE
@@ -1348,9 +1349,165 @@ def run_dkg(seed: int, validators: int = DKG_VALIDATORS) -> dict:
 
     log("dkg walls (s):", json.dumps(walls))
     return {
-        name: (int8_launches[name] if name in INT8_KERNELS else sum(w[name] for w in default_waves.values()))
+        name: (
+            int8_launches[name] if name in INT8_KERNELS
+            else sum(w[name] for w in default_waves.values()) + ceremony_launches[name]
+        )
         for name in KERNELS
     }
+
+
+class _TimedPort:
+    """A ceremony exchange port that records when each exchange round
+    completes (the first node to return from it: every node had sent)."""
+
+    def __init__(self, port, marks: dict):
+        self.port, self.marks = port, marks
+
+    async def exchange(self, tag: str, payload):
+        out = await self.port.exchange(tag, payload)
+        self.marks.setdefault(tag, time.perf_counter())
+        return out
+
+
+def _counted(impl, calls: dict):
+    """Count the tbls calls the ceremony makes of `impl`, by kind."""
+    for name in TBLS_CALLS:
+        fn = getattr(impl, name)
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(impl, name, wrapper)
+    return impl
+
+
+def _refused(lock_cls, data: dict, pubs: list, what: str) -> None:
+    from charon_tpu_torch.tbls import TblsError
+
+    try:
+        lock_cls.from_json(data).verify(pubs)
+    except (TblsError, ValueError) as e:
+        log(f"dkg ceremony: {what} refused: {e}")
+        return
+    raise AssertionError(f"DKG ceremony: {what} accepted")
+
+
+def run_ceremony(engine, seed: int, walls: dict) -> dict:
+    """The cluster ceremony (dkg/ceremony.run_dkg) on the card: a signed
+    cluster definition of DKG_CEREMONY's operators, then every node's
+    run_dkg in one event loop with the card engine for FROST's waves and
+    TorchImpl() on the card in the tbls registry for the signature rounds,
+    then ClusterLock.verify of node 0's lock file through that TorchImpl.
+    The lock, its tamperings, the deposits and the keystores are held
+    against the port's host PythonImpl. Returns each kernel's launches."""
+    import asyncio
+    import collections
+    import tempfile
+    from pathlib import Path
+
+    from charon_tpu_torch import tbls
+    from charon_tpu_torch.app import k1util
+    from charon_tpu_torch.cluster import ClusterDefinition, ClusterLock, Operator
+    from charon_tpu_torch.crypto import g1g2, shamir
+    from charon_tpu_torch.dkg import ceremony, frost  # the module: this script has a run_dkg of its own
+    from charon_tpu_torch.eth2util import deposit, keystore
+    from charon_tpu_torch.tbls.python_impl import PythonImpl
+    from charon_tpu_torch.tbls.torch_impl import TorchImpl
+
+    n, t, v = DKG_CEREMONY
+    rng = random.Random(f"ceremony/{seed}")
+    keys = [k1util.private_key_from_bytes(rng.randbytes(32)) for _ in range(n)]
+    pubs = [k1util.public_key_to_bytes(k.public_key()) for k in keys]
+    defn = ClusterDefinition(
+        name="chip-smoke", num_validators=v, threshold=t, fork_version=MAINNET_FORK,
+        operators=tuple(Operator(address=f"0xop{i}", enr=f"enr:-node-{i}") for i in range(n)),
+    )
+    for i, key in enumerate(keys):
+        defn = defn.sign_operator(i, key)
+    defn.verify_signatures(pubs)
+    calls: collections.Counter = collections.Counter()
+    impl = _counted(TorchImpl(), calls)
+    tbls.set_implementation(impl)
+    marks: dict = {}
+
+    async def all_nodes(data: Path):
+        fnet, xnet = frost.MemFrostTransport(n), ceremony.MemExchangeNet(n)
+        return await asyncio.gather(*(
+            ceremony.run_dkg(defn, i, keys[i], fnet.participant(i + 1), _TimedPort(xnet.port(i), marks),
+                             engine=engine, data_dir=data / f"node{i}")
+            for i in range(n)
+        ))
+
+    def the_ceremony(data: Path):
+        t0 = time.perf_counter()
+        res = asyncio.run(all_nodes(data))
+        bounds = [t0] + [marks[tag] for tag in ("deposit-sig", "registration-sig", "lock-sig", "node-sig")]
+        for name, a, b in zip(("frost", "deposit_round", "registration_round", "lock_round"), bounds, bounds[1:]):
+            walls[f"ceremony_{name}"] = b - a
+        walls["ceremony_outputs"] = time.perf_counter() - bounds[-1]
+        t0 = time.perf_counter()
+        ClusterLock.load(str(data / "node0" / "cluster-lock.json")).verify(pubs)
+        walls["ceremony_lock_verify"] = time.perf_counter() - t0
+        return res
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-dkg-") as tmp:
+            data = Path(tmp)
+            res, launches = _wave("ceremony", lambda: the_ceremony(data), n * v,
+                                  DEFAULT_KERNELS, INT8_KERNELS, walls)
+            log("dkg ceremony walls (s):", json.dumps({k: round(w, 3) for k, w in walls.items()
+                                                       if k.startswith("ceremony_")}))
+            log("dkg ceremony tbls calls on the card:", json.dumps(dict(calls)))
+
+            # FROST: every node derived the same keys, t shares recover each group key
+            lock = res[0].lock
+            if any(r.lock.lock_hash() != lock.lock_hash() or r.lock.signature_aggregate != lock.signature_aggregate
+                   for r in res):
+                raise AssertionError("DKG ceremony: the nodes' locks differ")
+            for val, dv in enumerate(lock.validators):
+                shares = [int.from_bytes(r.share_secrets[val], "big") for r in res]
+                secret = shamir.recover_secret({i + 1: shares[i] for i in range(t)})
+                if g1g2.g1_to_bytes(g1g2.g1_mul(g1g2.G1_GEN, secret)) != bytes.fromhex(dv.distributed_public_key[2:]):
+                    raise AssertionError(f"DKG ceremony: t shares do not recover validator {val}'s group key")
+                if any("0x" + g1g2.g1_to_bytes(g1g2.g1_mul(g1g2.G1_GEN, s)).hex() != dv.public_shares[i]
+                       for i, s in enumerate(shares)):
+                    raise AssertionError(f"DKG ceremony: validator {val}'s shares do not match its pubshares")
+            for i, r in enumerate(res):
+                if keystore.load_keys(data / f"node{i}" / "validator_keys") != r.share_secrets:
+                    raise AssertionError(f"DKG ceremony: node {i}'s keystores do not decrypt to its shares")
+            log(f"dkg ceremony: {n} nodes, t = {t}, {v} validators: equal locks, t shares recover each group "
+                f"key, the pubshares match, every node's keystores decrypt to its shares")
+
+            # the same lock on the host backend, and its tamperings on both backends
+            lock_json = json.loads((data / "node0" / "cluster-lock.json").read_text())
+            flipped = bytearray(bytes.fromhex(lock_json["signature_aggregate"][2:]))
+            flipped[40] ^= 1
+            amount = json.loads(json.dumps(lock_json))
+            amount["distributed_validators"][0]["deposit_data"]["amount"] = str(deposit.DEFAULT_AMOUNT_GWEI - 1)
+            # resealed, as a forger would: the lock hash then passes and the aggregate signature is what refuses it
+            del amount["lock_hash"]
+            amount["lock_hash"] = "0x" + ClusterLock.from_json(amount).lock_hash().hex()
+            tampered = {"a flipped byte of signature_aggregate": dict(lock_json, signature_aggregate="0x" + flipped.hex()),
+                        "a changed deposit amount": amount}
+            for backend, label in ((impl, "TorchImpl on the card"), (PythonImpl(), "PythonImpl on the host")):
+                tbls.set_implementation(backend)
+                for what, bad in tampered.items():
+                    _refused(ClusterLock, bad, pubs, f"{what} ({label})")
+            host = PythonImpl()
+            tbls.set_implementation(host)
+            ClusterLock.from_json(lock_json).verify(pubs)
+            fork = bytes.fromhex(MAINNET_FORK[2:])
+            for d in json.loads((data / "node0" / "deposit-data.json").read_text()):
+                pubkey = bytes.fromhex(d["pubkey"])
+                msg = deposit.DepositMessage(pubkey, bytes.fromhex(d["withdrawal_credentials"]), int(d["amount"]))
+                host.verify(pubkey, deposit.signing_root(msg, fork), bytes.fromhex(d["signature"]))
+            log("dkg ceremony: the lock verified through TorchImpl on the card and by PythonImpl on the host, "
+                "each deposit signature under its group key on the host, both tamperings refused by both")
+    finally:
+        tbls.set_implementation(None)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1402,7 +1559,7 @@ def run_node(seed: int, slot_duration: float) -> dict:
     from charon_tpu_torch.crypto import bls, shamir
     from charon_tpu_torch.ops import mont_kernels as MK
     from charon_tpu_torch.parallel import SlotCryptoPlane, make_mesh
-    from charon_tpu_torch.tbls.python_impl import PythonHost, int_to_sk, sk_to_int
+    from charon_tpu_torch.tbls.python_impl import PythonImpl, int_to_sk, sk_to_int
     from charon_tpu_torch.tbls.torch_impl import TorchImpl
     from charon_tpu_torch.testutil.simnet import build_cluster
 
@@ -1531,7 +1688,7 @@ def run_node(seed: int, slot_duration: float) -> dict:
         shares = {i: sk_to_int(cluster.share_keys[i - 1][pk]) for i in range(1, NODE_T + 1)}
         return int_to_sk(shamir.recover_secret(shares))
 
-    host = PythonHost()
+    host = PythonImpl()
     epoch = slot // NODE_SLOTS_PER_EPOCH
     atts = [a for a in beacon.attestations if a.data.slot == slot]
     by_index: dict[int, set] = {}
@@ -1648,6 +1805,11 @@ def main(argv=None) -> int:
         help="build the kernels and run only the node phase, once at each slot duration (s), reporting each "
              "pass or missed deadline; prints no result line",
     )
+    ap.add_argument(
+        "--ceremony", action="store_true",
+        help="build the kernels and run only phase 9's cluster ceremony (dkg/ceremony.run_dkg on the card); "
+             "prints no result line",
+    )
     args = ap.parse_args(argv)
     if args.validators < 16:
         ap.error("each duty needs at least 16 validators (the forged batch takes 64 partials)")
@@ -1676,6 +1838,13 @@ def main(argv=None) -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     if args.node_sweep:
         return node_sweep(args.seed, args.node_sweep)
+    if args.ceremony:
+        from charon_tpu_torch.ops.blsops import BlsEngine
+
+        walls: dict = {}
+        launches = run_ceremony(BlsEngine(), args.seed, walls)
+        log("ceremony launches:", json.dumps(launches))
+        return 0
     count_imma()
 
     results = check_kernels(args.seed)

@@ -25,7 +25,6 @@ from test_cryptoplane import FakePlane, T
 from test_hostplane import StubCoalescer, _sig_items
 from test_torch_node_core import port_globals  # noqa: F401 — autouse registry hygiene
 
-from charon_tpu.tbls.python_impl import PythonImpl
 from charon_tpu_torch import tbls
 from charon_tpu_torch.core import eth2data as d
 from charon_tpu_torch.core.cryptoplane import SlotCoalescer
@@ -40,6 +39,7 @@ from charon_tpu_torch.core.sigagg import SigAgg
 from charon_tpu_torch.core.types import Duty, DutyType, pubkey_from_bytes
 from charon_tpu_torch.eth2util.signing import ForkInfo
 from charon_tpu_torch.tbls import TblsError
+from charon_tpu_torch.tbls.python_impl import PythonImpl
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
 torch.set_num_threads(1)  # tiny tensors: more intra-op threads only spin

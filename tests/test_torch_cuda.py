@@ -25,7 +25,7 @@ from charon_tpu_torch.crypto import g1g2, shamir
 from charon_tpu_torch.ops import limb as L
 from charon_tpu_torch.ops import mont_kernels as MK
 from charon_tpu_torch.ops import msm as MSM
-from charon_tpu_torch.tbls.python_impl import PythonHost, sig_to_point
+from charon_tpu_torch.tbls.python_impl import PythonImpl, sig_to_point
 
 pytestmark = pytest.mark.cuda
 
@@ -183,7 +183,7 @@ def test_torch_impl_on_card_matches_host_oracle(card, mxu_mont):
 
     KernelConfig(mxu_mont=mxu_mont).apply()
     MK.reset_launches()
-    host, impl = PythonHost(), TorchImpl()
+    host, impl = PythonImpl(), TorchImpl()
     lanes, batch = [], []
     for v in range(4):
         shares = host.threshold_split(host.generate_secret_key(), 5, 3)
@@ -347,7 +347,7 @@ def test_attester_duty_through_the_service_on_card_equals_the_cpu_plane(card):
     from charon_tpu_torch.tbls.torch_impl import TorchImpl
     from charon_tpu_torch.testutil.simnet import build_cluster
 
-    class SeededHost(PythonHost):
+    class SeededHost(PythonImpl):
         def __init__(self, seed):
             self._rng = random.Random(seed)
 

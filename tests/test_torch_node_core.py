@@ -3,14 +3,14 @@ eth2util, app and testutil copies), held against the JAX package.
 
 The cases of the JAX package's tests/test_core.py, test_ssz_roundtrip.py,
 test_spec_blocks.py, test_inclusion.py and test_qbft.py run here on the
-port's modules: `reference_cases` loads a reference test file with its
-imports of `charon_tpu` rebound to `charon_tpu_torch` (the crypto backends
-and the golden-file helper stay the reference's: the tests install the
-reference's PythonImpl into the port's tbls registry, as the reference
-simnet's own fixture does). Left out, because they need modules the port
-does not have yet: test_qbft's consensus-sniffer case (app/metrics.py),
-and test_spec_blocks' wire-codec and HTTP-router cases (p2p/codec.py,
-core/vapi_http.py).
+port's modules: `reference_cases` loads a reference test file with every
+import of `charon_tpu` rebound to `charon_tpu_torch`, the host tbls
+backends and the golden-file helper included (the tests install the
+port's PythonImpl into the port's tbls registry, as the reference
+simnet's own fixture does with the reference's). Left out, because they
+need modules the port does not have yet: test_qbft's consensus-sniffer
+case (app/metrics.py, ROADMAP item 13e), and test_spec_blocks' wire-codec
+and HTTP-router cases (p2p/codec.py, 13d; core/vapi_http.py, 13g).
 
 Parity: the same seeded containers (attestation data, attestations,
 deneb blocks, builder registrations, sync messages, exits, aggregates)
@@ -37,27 +37,24 @@ from charon_tpu_torch import tbls as port_tbls
 from charon_tpu_torch.app import featureset as port_featureset
 
 _TESTS = pathlib.Path(__file__).parent
-# modules a rebound reference test keeps from the JAX package: the host
-# crypto backends it installs and the golden-file helper
-_REFERENCE_ONLY = (
-    "charon_tpu.tbls.python_impl",
-    "charon_tpu.tbls.native_impl",
-    "charon_tpu.testutil.golden",
-)
+# modules of the JAX package a rebound reference test may keep: none, every
+# module it imports is the port's
+_REFERENCE_ONLY = ()
 
 
-def reference_cases(name: str) -> types.ModuleType:
+def reference_cases(name: str, drop_imports: tuple[str, ...] = ()) -> types.ModuleType:
     """The JAX package's tests/{name}.py, executed with every import of
-    `charon_tpu` rebound to `charon_tpu_torch` (but _REFERENCE_ONLY).
-    The module keeps the reference file's path, so tracebacks and golden
-    files resolve there."""
+    `charon_tpu` rebound to `charon_tpu_torch`.
+    `drop_imports` names port modules the port does not have yet: their
+    module-level `from ... import` lines become blank, and the cases that
+    use them must stay out of `export_cases`. The module keeps the
+    reference file's path, so tracebacks and golden files resolve there."""
     path = _TESTS / f"{name}.py"
-    src = path.read_text()
-    for i, mod in enumerate(_REFERENCE_ONLY):
-        src = src.replace(mod, f"\0{i}\0")
-    src = re.sub(r"\bcharon_tpu\b", "charon_tpu_torch", src)
-    for i, mod in enumerate(_REFERENCE_ONLY):
-        src = src.replace(f"\0{i}\0", mod)
+    src = re.sub(r"\bcharon_tpu\b", "charon_tpu_torch", path.read_text())
+    for mod in drop_imports:
+        src, dropped = re.subn(rf"(?m)^from {re.escape(mod)} import [^\n(]*$", "", src)
+        if dropped != 1:
+            raise ValueError(f"{name}: no single module-level import of {mod}")
     module = types.ModuleType(f"port_{name}")
     module.__file__ = str(path)
     sys.modules[module.__name__] = module  # dataclasses resolve it there
@@ -65,18 +62,40 @@ def reference_cases(name: str) -> types.ModuleType:
     return module
 
 
+def reference_modules(case) -> set[str]:
+    """The JAX package's modules (but _REFERENCE_ONLY) that a rebound
+    case's globals hold: a function's or fixture's, or a `Test*` class's
+    methods'."""
+    if isinstance(case, type):
+        fns = [v for k, v in vars(case).items() if k.startswith("test_")]
+    else:
+        fns = [getattr(case, "__wrapped__", case)]
+    found = set()
+    for fn in fns:
+        for value in fn.__globals__.values():
+            mod = value.__name__ if isinstance(value, types.ModuleType) else getattr(value, "__module__", None)
+            if isinstance(mod, str) and re.match(r"charon_tpu(\.|$)", mod) and not mod.startswith(_REFERENCE_ONLY):
+                found.add(mod)
+    return found
+
+
 def _is_fixture(obj) -> bool:
     return hasattr(obj, "_pytestfixturefunction") or type(obj).__name__ == "FixtureFunctionDefinition"
 
 
-def export_cases(module: types.ModuleType, into: dict, skip: tuple[str, ...] = ()) -> list[str]:
-    """Bind the module's test functions and fixtures into a test file's
-    namespace (where pytest collects them); returns the test names."""
+def export_cases(
+    module: types.ModuleType, into: dict, skip: tuple[str, ...] = (), only: tuple[str, ...] | None = None
+) -> list[str]:
+    """Bind the module's test functions, `Test*` classes and fixtures into
+    a test file's namespace (where pytest collects them), but those in
+    `skip` or, given `only`, the tests not in it; returns the names."""
     names = []
+    if only is not None and not set(only) <= set(vars(module)):
+        raise NameError(f"{module.__name__} has no {sorted(set(only) - set(vars(module)))}")
     for name, obj in vars(module).items():
-        if name in skip:
+        if name in skip or only is not None and name.startswith(("test_", "Test")) and name not in only:
             continue
-        if name.startswith("test_") and callable(obj) or _is_fixture(obj):
+        if name.startswith("test_") and callable(obj) or name.startswith("Test") and isinstance(obj, type) or _is_fixture(obj):
             if name in into and into[name] is not obj:
                 raise NameError(f"{module.__name__}.{name} shadows {name}")
             into[name] = obj
@@ -116,13 +135,7 @@ def test_reference_cases_run_on_the_port():
         8,
     )
     for name in CORE_CASES + INCLUSION_CASES + QBFT_CASES + SPEC_CASES:
-        fn = globals()[name]
-        for value in fn.__globals__.values():
-            mod = getattr(value, "__module__", None) or getattr(value, "__name__", "")
-            if isinstance(value, types.ModuleType):
-                mod = value.__name__
-            if isinstance(mod, str) and re.match(r"charon_tpu(\.|$)", mod):
-                assert mod.startswith(_REFERENCE_ONLY), (name, mod)
+        assert not reference_modules(globals()[name]), name
 
 
 # -- parity: the same seeded containers in both packages ---------------------
@@ -217,7 +230,7 @@ def test_seeded_containers_have_the_reference_roots(seed):
 def test_registry_delegates_to_the_installed_backend():
     """The port's package functions dispatch to set_implementation's
     backend, as the reference's do."""
-    from charon_tpu.tbls.python_impl import PythonImpl
+    from charon_tpu_torch.tbls.python_impl import PythonImpl
 
     impl = PythonImpl()
     port_tbls.set_implementation(impl)

@@ -15,6 +15,10 @@ and the node's duty workflow end to end, held against the JAX package.
     and the service's flushes carry every node's lanes.
   * The registry: unported build_cluster options raise
     NotImplementedError, and get_implementation() raises without a card.
+    Clusters here run on the port's host backends (NativeImpl where
+    native/libcharon_native.so loads, else PythonImpl).
+  * Signed QBFT: a cluster whose messages are k1-signed over the port's
+    app/k1util decides.
   * `slow`: one attester duty through the service over the port's
     SlotCryptoPlane on the CPU with TorchImpl(device="cpu"), against the
     reference simnet's broadcast (each CPU plane program takes 5-15 s).
@@ -25,6 +29,7 @@ Tolerance: exact (bytes).
 from __future__ import annotations
 
 import asyncio
+import importlib
 import time
 
 import numpy as np
@@ -38,7 +43,6 @@ from charon_tpu.crypto.bls import G1_GEN, g1_neg
 from charon_tpu.core.types import pubkey_to_bytes as ref_pubkey_to_bytes
 from charon_tpu.crypto.pairing_fast import is_gt_one, multi_pairing_fast
 from charon_tpu.eth2util import ssz as ref_ssz
-from charon_tpu.tbls.python_impl import PythonImpl
 from charon_tpu.testutil import simnet as ref_simnet
 from charon_tpu_torch import tbls as port_tbls
 from charon_tpu_torch.core.cryptoplane import SlotCoalescer
@@ -47,6 +51,7 @@ from charon_tpu_torch.core.eth2data import SignedData
 from charon_tpu_torch.core.types import Duty, DutyType, pubkey_to_bytes
 from charon_tpu_torch.crypto.fields import R
 from charon_tpu_torch.eth2util import ssz as port_ssz
+from charon_tpu_torch.tbls.python_impl import PythonImpl
 from charon_tpu_torch.tbls.torch_impl import TorchImpl
 from charon_tpu_torch.testutil import simnet as port_simnet
 
@@ -57,15 +62,14 @@ SIMNET_CASES = export_cases(
 )
 
 
-def _host_backend():
-    """The reference's native backend where it builds, else PythonImpl
-    (the reference simnet's own choice)."""
+def _host_backend(package: str = "charon_tpu_torch"):
+    """The package's native backend where it builds, else its PythonImpl
+    (the reference simnet's own choice): the port's by default, the
+    reference's for the reference cluster."""
     try:
-        from charon_tpu.tbls.native_impl import NativeImpl
-
-        return NativeImpl()
+        return importlib.import_module(f"{package}.tbls.native_impl").NativeImpl()
     except ImportError:
-        return PythonImpl()
+        return importlib.import_module(f"{package}.tbls.python_impl").PythonImpl()
 
 
 class SeededKeys:
@@ -141,7 +145,7 @@ def _block_bytes(ssz, props) -> set[tuple[bytes, bytes]]:
 def test_port_simnet_broadcasts_the_reference_bytes():
     """The slice as a whole: both packages' clusters from the same seeded
     secrets broadcast identical attestations and blocks."""
-    ref_tbls.set_implementation(SeededKeys(_host_backend(), seed=7))
+    ref_tbls.set_implementation(SeededKeys(_host_backend("charon_tpu"), seed=7))
     port_tbls.set_implementation(SeededKeys(_host_backend(), seed=7))
 
     async def run():
@@ -289,10 +293,51 @@ def test_unported_build_cluster_options_raise(option):
 
 
 def test_qbft_message_keys_raise_until_k1util():
+    """QBFTConsensus(privkey=, pubkeys=) raised NotImplementedError until
+    the port had app/k1util.py. Now a 4-node cluster whose every message
+    is k1-signed over the port's k1util decides one value on every node,
+    every message it sent verifies under its sender's key, and a copy
+    signed with another node's key is refused."""
+    import dataclasses
+
+    from charon_tpu_torch.app import k1util
+    from charon_tpu_torch.core import qbft
     from charon_tpu_torch.core.consensus_qbft import MemMsgNet, QBFTConsensus
 
-    with pytest.raises(NotImplementedError, match="k1util"):
-        QBFTConsensus(MemMsgNet(), 4, privkey=object(), pubkeys=[b""] * 4)
+    n = 4
+    privs = [k1util.generate_private_key() for _ in range(n)]
+    pubs = [k1util.public_key_to_bytes(k.public_key()) for k in privs]
+    sent: list = []
+
+    class RecordingNet(MemMsgNet):
+        async def broadcast(self, from_idx, duty, msg, values, tctx=None):
+            sent.append((from_idx, msg))
+            await super().broadcast(from_idx, duty, msg, values, tctx=tctx)
+
+    net = RecordingNet()
+    nodes = [
+        QBFTConsensus(net, n, round_timeout=0.15, round_increase=0.15, privkey=privs[i], pubkeys=pubs, timer="inc")
+        for i in range(n)
+    ]
+    duty = Duty(slot=1, type=DutyType.ATTESTER)
+    unsigned = {"pk1": "attdata"}
+    decided = []
+    for node in nodes:
+
+        async def sub(d, s):
+            decided.append((d, s))
+
+        node.subscribe(sub)
+
+    async def run():
+        await asyncio.wait_for(asyncio.gather(*(node.propose(duty, dict(unsigned)) for node in nodes)), 10)
+
+    asyncio.run(run())
+    assert decided == [(duty, unsigned)] * n
+    assert sent and all(nodes[0].defn.is_valid(msg) for _, msg in sent)
+    msg = next(m for s, m in sent if s != 0)
+    forged = dataclasses.replace(msg, signature=k1util.sign(privs[0], qbft.msg_digest(msg)))
+    assert not nodes[0].defn.is_valid(forged)
 
 
 def test_registry_default_is_the_card_and_raises_without_one():
@@ -317,7 +362,7 @@ def test_attester_duty_through_the_torch_plane_on_the_cpu_equals_the_reference()
     reference simnet's broadcast in the same slot."""
     from charon_tpu_torch.parallel import SlotCryptoPlane, make_mesh
 
-    ref_tbls.set_implementation(SeededKeys(_host_backend(), seed=5))
+    ref_tbls.set_implementation(SeededKeys(_host_backend("charon_tpu"), seed=5))
     backend = SeededKeys(_host_backend(), seed=5)
     port_tbls.set_implementation(backend)
     slot_s = 120.0
