@@ -10,9 +10,10 @@ completion via the broadcast recorder.
 production node is wired onto a shared crypto plane: node i registers as
 tenant `node{i}` of the given `core/cryptosvc.CryptoPlaneService` and its
 SigAgg, ValidatorAPI and Eth2Verifier hold that TenantPlane, so on one
-card the n nodes are n tenants of one slot plane. Options whose modules
-the port does not have yet (chaos, protocol_prefs, flightrec) raise
-NotImplementedError.
+card the n nodes are n tenants of one slot plane; with `crypto_remote=`
+some of them reach it over TCP as remote tenants
+(`core/cryptosvc_client.RemotePlane`). Options whose modules the port
+does not have yet (chaos, flightrec) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ class SimCluster:
     # set when built with crypto_service: the shared CryptoPlaneService
     # every node is a tenant of (its owner closes it)
     crypto_service: object | None = None
+    # set when built with crypto_remote: (share_idx, TenantPlane) -> the
+    # plane that node holds
+    crypto_remote: object | None = None
 
     # -- crash control -----------------------------------------------------
 
@@ -139,8 +143,9 @@ class SimNode:
     tracker: Tracker | None = None
     tracer: object | None = None  # app/tracer.Tracer (tracing=True builds)
     crypto_plane: object | None = None  # SlotCoalescer (crypto_plane=True)
-    # core/cryptosvc.TenantPlane (crypto_service builds): the handle its
-    # SigAgg, ValidatorAPI and Eth2Verifier hold
+    # core/cryptosvc.TenantPlane (crypto_service builds), or what
+    # crypto_remote returned for it: the handle its SigAgg, ValidatorAPI
+    # and Eth2Verifier hold
     tenant_plane: object | None = None
     parsigex: ParSigEx | None = None
     # core/evidence.EvidenceRegistry — per-node Byzantine detections,
@@ -212,14 +217,19 @@ def build_cluster(
     crypto_plane: bool = False,
     flightrec: bool = False,
     crypto_service=None,  # core/cryptosvc.CryptoPlaneService: tenants
+    crypto_remote=None,  # (share_idx, TenantPlane) -> plane of that node
 ) -> SimCluster:
     """Create keys and wire n in-process nodes (ref: app/app.go simnet +
     cluster/test_cluster.go generator, redesigned for asyncio).
 
-    `chaos` (the fault-injection plane, testutil/chaos.py),
-    `protocol_prefs` (priority negotiation, core/priority.py) and
+    `chaos` (the fault-injection plane, testutil/chaos.py) and
     `flightrec` (app/flightrec.py) need modules the port does not have
     yet and raise NotImplementedError.
+
+    `protocol_prefs` gives node i the protocol preference list
+    `protocol_prefs[i - 1]` and joins every node to one in-memory
+    priority/infosync fabric that switches the consensus protocol to the
+    cluster's choice at epoch edges (core/priority.py).
 
     With `tracing_on`, every node gets its OWN app/tracer.Tracer wired
     as a wire() option plus transport-frame trace-context propagation
@@ -234,16 +244,15 @@ def build_cluster(
     shared service, and its SigAgg (with the pubshares and the slot
     clock), ValidatorAPI and Eth2Verifier (with the clock) hold the
     TenantPlane, as app/run.py wires a production node; it excludes
-    `crypto_plane`."""
+    `crypto_plane`. `crypto_remote(share_idx, tenant_plane)`, given with
+    `crypto_service`, returns the plane node i holds instead of its
+    TenantPlane: a core/cryptosvc_client.RemotePlane whose local rung is
+    that TenantPlane, as app/run.py wires a node with a remote crypto
+    service (return the TenantPlane itself to keep a node in-process)."""
     if chaos is not None:
         raise NotImplementedError(
             "build_cluster(chaos=...) needs testutil/chaos.py, not ported "
             "yet (ROADMAP item 13f)"
-        )
-    if protocol_prefs is not None:
-        raise NotImplementedError(
-            "build_cluster(protocol_prefs=...) needs core/priority.py, not "
-            "ported yet (ROADMAP item 13d)"
         )
     if flightrec:
         raise NotImplementedError(
@@ -252,6 +261,8 @@ def build_cluster(
         )
     if crypto_service is not None and crypto_plane:
         raise ValueError("crypto_service and crypto_plane exclude each other")
+    if crypto_remote is not None and crypto_service is None:
+        raise ValueError("crypto_remote needs crypto_service")
     impl = tbls.get_implementation()
 
     group_pubkeys: list[PubKey] = []
@@ -289,6 +300,7 @@ def build_cluster(
         share_keys=share_keys,
         pubshares_by_idx=pubshares_by_idx,
         crypto_service=crypto_service,
+        crypto_remote=crypto_remote,
     )
 
     transport = MemTransport()
@@ -297,6 +309,13 @@ def build_cluster(
         from charon_tpu_torch.core.consensus_qbft import MemMsgNet
 
         qbft_net = MemMsgNet()
+    # priority negotiation fabric (opt-in: protocol_prefs per node)
+    prio_fabric = None
+    if protocol_prefs is not None:
+        from charon_tpu_torch.core.priority import MemPriorityFabric
+
+        assert len(protocol_prefs) == n
+        prio_fabric = MemPriorityFabric()
     for i in range(1, n + 1):
         cluster.nodes.append(
             _build_node(
@@ -306,6 +325,10 @@ def build_cluster(
                 slots_per_epoch,
                 qbft_net,
                 wire_vmock,
+                prio_fabric=prio_fabric,
+                protocol_prefs=(
+                    protocol_prefs[i - 1] if protocol_prefs else None
+                ),
                 tracing_on=tracing_on,
                 trace_dir=trace_dir,
                 crypto_plane=crypto_plane,
@@ -321,6 +344,8 @@ def _build_node(
     spe: int,
     qbft_net=None,
     wire_vmock: bool = True,
+    prio_fabric=None,
+    protocol_prefs: list[str] | None = None,
     tracing_on: bool = False,
     trace_dir: str | None = None,
     crypto_plane: bool = False,
@@ -357,6 +382,8 @@ def _build_node(
     tenant_plane = None
     if cluster.crypto_service is not None:
         tenant_plane = cluster.crypto_service.register(f"node{share_idx}")
+        if cluster.crypto_remote is not None:
+            tenant_plane = cluster.crypto_remote(share_idx, tenant_plane)
 
     from charon_tpu_torch.core.evidence import EvidenceRegistry
 
@@ -498,6 +525,28 @@ def _build_node(
     inclusion = InclusionChecker(beacon, check_lag=1)
     bcast.subscribe(inclusion.submitted)
     scheduler.subscribe_slots(inclusion.on_slot)
+
+    # priority/infosync negotiation at epoch edges, switching the
+    # consensus protocol to the cluster choice (same wiring as
+    # app/run.py; ref: core/priority + core/infosync)
+    if prio_fabric is not None and protocol_prefs is not None:
+        from charon_tpu_torch.core.priority import (
+            InfoSync,
+            Prioritiser,
+            protocol_switcher,
+        )
+
+        prio_fabric.join()
+        prioritiser = Prioritiser(
+            node_idx=share_idx,
+            quorum=cluster.t,
+            exchange=prio_fabric.exchange,
+            consensus=consensus,
+            topics_fn=lambda: {InfoSync.TOPIC_PROTOCOL: protocol_prefs},
+        )
+        prioritiser.subscribe(protocol_switcher(consensus))
+        infosync = InfoSync(prioritiser)
+        scheduler.subscribe_slots(infosync.on_slot)
 
     return SimNode(
         share_idx=share_idx,

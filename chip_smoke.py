@@ -53,8 +53,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   8. the slot crypto plane (parallel/mesh.SlotCryptoPlane on the card)
      under its coalescer (core/cryptoplane.SlotCoalescer, the device
      decode): the boot warm-up through the plane's g1dec and h2c programs,
-     prewarm (one verify and one recombine bucket, both tiers, the
-     decode-fused programs too), then the 1k-validator slot coalesced (every partial as 8
+     prewarm (one verify bucket, both tiers, the decode-fused programs
+     too; the recombine programs first run in the slot's flush), then the 1k-validator slot coalesced (every partial as 8
      verify calls and every validator as 2 recombine duties, t = 4) into
      ONE flush of verify_rlc_dec and step_rlc_dec, every verdict True and
      each group signature's bytes equal to phase 6's; a forged partial
@@ -65,8 +65,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      and each program's walls and lanes;
   9. the DKG and resharing ceremonies (dkg/frost.py, dkg/reshare.py and
      the engine's ceremony calls): one node's round-2 verification waves
-     of a 4-of-7 FROST DKG over 10,000 validators (BASELINE config 4),
-     70,000 lanes each: the proof-of-knowledge wave ([mu]G by the
+     of a 4-of-7 FROST DKG over 5,000 validators (BASELINE config 4's
+     10,000, halved for time), 35,000 lanes each: the proof-of-knowledge wave ([mu]G by the
      fixed-base table against R + [c]A0 by the ladder and a G1 sum), the
      share wave ([f_i(me)]G against the Straus commitment evaluation) and
      the pubshare wave (width 28 against [s_j]G), every commitment and nonce
@@ -99,15 +99,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      (testutil/simnet.build_cluster) whose 7 nodes are tenants of ONE
      core/cryptosvc.CryptoPlaneService over a SlotCoalescer (device
      decode) over SlotCryptoPlane(make_mesh(), t=4), the tbls registry
-     holding the card's TorchImpl with seeded keys; the boot warm-up of
-     every pubshare and group pubkey, then the schedulers until all 7
-     nodes broadcast slot 0's attester duty (16 validators) and proposer
-     duty (randao, then the block) before their deadline, at --node-slot
-     seconds a slot: byte-equal signatures across the nodes, equal to the
-     host signature of the group secret recovered from t shares, no
-     missed duty in any tracker, no inline tbls call, nothing shed, K1-K3
-     only. Slot start to broadcast per duty (min, median, max over the
-     nodes), each flush's jobs, lanes, wall and tenants, the launches;
+     holding the card's TorchImpl with seeded keys. Nodes 1-3 hold their
+     TenantPlane in process; nodes 4-7 reach the card only over TCP, each
+     through a core/cryptosvc_client.RemotePlane (its TenantPlane the
+     local rung) dialled to one core/cryptosvc_server.CryptoServiceServer
+     on 127.0.0.1 that serves the same service, one token a tenant. The
+     boot warm-up of every pubshare and group pubkey, a client with a
+     wrong token refused at the handshake, one probe verify a remote
+     node, then the schedulers until all 7 nodes broadcast slot 0's
+     attester duty (16 validators) and proposer duty (randao, then the
+     block) before their deadline, at --node-slot seconds a slot:
+     byte-equal signatures across the nodes, equal to the host signature
+     of the group secret recovered from t shares, no missed duty in any
+     tracker, no inline tbls call, nothing shed, K1-K3 only; every remote
+     node's jobs remote (none local, no failover, shed or disconnect)
+     and its tenant's lanes in the card's flushes. Slot start to
+     broadcast per duty for the in-process and the remote nodes (min,
+     median, max), each flush's jobs, lanes, wall and tenants, each
+     remote job's round trip beside the server's flush wall for it, the
+     launches;
  11. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
      during phases 5-6), each beside its bound;
@@ -432,13 +442,15 @@ TUNER_VALUES = {
 
 
 # the tuner's benches a value, cut from autotune.TUNE_REPS (5) to make
-# room for the node phase
+# room for the node phase; the ceremony axes, whose values differ 1.7-2.7x,
+# take one (their spread is then 0), to keep the script under 1,000 s
 TUNER_REPS = 2
+TUNER_CEREMONY_REPS = 1
 
 
-def run_tuner(lanes: int, axis: str = "mxu_mont") -> None:
+def run_tuner(lanes: int, axis: str = "mxu_mont", reps: int = TUNER_REPS) -> None:
     """autotune.resolve on the card over one axis at `lanes` (the duty's or
-    the wave's lane count), TUNER_REPS benches a value, with its profile in
+    the wave's lane count), `reps` benches a value, with its profile in
     a scratch directory under the build directory. Its timings, spread and
     choice are printed; the phases set their configurations themselves."""
     import tempfile
@@ -451,13 +463,13 @@ def run_tuner(lanes: int, axis: str = "mxu_mont") -> None:
     with tempfile.TemporaryDirectory(dir=MK.BUILD_DIR) as tmp:
         res = autotune.resolve(
             "force", Path(tmp) / autotune.PROFILE_BASENAME,
-            lanes=lanes, reps=TUNER_REPS, candidates={axis: autotune.CANDIDATES[axis]},
+            lanes=lanes, reps=reps, candidates={axis: autotune.CANDIDATES[axis]},
         )
         prof = autotune.load_profile(Path(tmp) / autotune.PROFILE_BASENAME)
     on, off, spread = (res.timings[axis][k] * 1e3 for k in ("on", "off", "spread"))
     on_name, off_name = TUNER_VALUES[axis]
     log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {lanes} lanes "
-        f"(min of {TUNER_REPS}): {axis} on ({on_name}) {on:.3f} ms, off ({off_name}) {off:.3f} ms, "
+        f"(min of {reps}): {axis} on ({on_name}) {on:.3f} ms, off ({off_name}) {off:.3f} ms, "
         f"spread {spread:.3f} ms; choice {axis}={getattr(res.config, axis)}; "
         f"profile {prof['platform']} {prof['capability']} torch {prof['torch_version']} CUDA {prof['cuda_version']}")
     MK.reset_launches()
@@ -899,10 +911,12 @@ def profile_device(impl, batch, label: str) -> None:
 
 PLANE_VERIFY_CALLS = 8
 PLANE_SMALL = 64  # validators of the attribution, point-input and int8 flushes
-# prewarm's buckets: one verify and one recombine bucket (the smallest), not
-# the plane's default ladder: the port has no per-shape compile, so a bucket
-# buys only its first launches
+# prewarm's buckets: one verify bucket (the smallest), not the plane's
+# default ladders: the port has no per-shape compile, so a bucket buys only
+# its first launches; the recombine buckets (70 s of the script's time) were
+# cut to keep it under 1,000 s (PERF.md section 4)
 PLANE_PREWARM_LANES = (1,)
+PLANE_PREWARM_RECOMBINE_LANES = ()
 
 
 def _rows(vals: list):
@@ -1025,9 +1039,10 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
         _check_launches(dict(MK.LAUNCHES), "plane warm-up", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
 
         report = stage(
-            "plane_prewarm", lambda: asyncio.run(coal.prewarm(PLANE_PREWARM_LANES, PLANE_PREWARM_LANES)), {}
+            "plane_prewarm", lambda: asyncio.run(coal.prewarm(PLANE_PREWARM_LANES, PLANE_PREWARM_RECOMBINE_LANES)), {}
         )
-        log(f"plane prewarm cut to verify and recombine lanes {PLANE_PREWARM_LANES} (the plane's default ladder: "
+        log(f"plane prewarm cut to verify lanes {PLANE_PREWARM_LANES} and recombine lanes "
+            f"{PLANE_PREWARM_RECOMBINE_LANES} (the plane's default ladder: "
             f"{plane.PREWARM_VERIFY_LANES} and {plane.PREWARM_RECOMBINE_LANES}); (kind, bucket lanes, s):",
             json.dumps(report))
 
@@ -1115,7 +1130,9 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 DKG_N, DKG_T = 7, 4  # the 4-of-7 split of BASELINE configs 1-2
-DKG_VALIDATORS = 10_000  # BASELINE config 4
+# BASELINE config 4 has 10,000; the waves' walls follow their lanes, and
+# half of them keeps the script under 1,000 s (PERF.md section 4)
+DKG_VALIDATORS = 5_000
 DKG_ME = 1  # the node whose round 2 the phase runs
 DKG_SAMPLE = 64  # lanes of each wave held against the host oracle
 DKG_INT8_LANES = 1024
@@ -1343,8 +1360,8 @@ def run_dkg(seed: int, validators: int = DKG_VALIDATORS) -> dict:
         raise AssertionError("DKG int8 share wave differs from the default one")
 
     # the tuner's ceremony axes at the waves' lanes
-    run_tuner(lanes, "ceremony_straus")
-    run_tuner(rv_ * (rn_ + 1) * rn_ * rt_, "ceremony_msm_w8")
+    run_tuner(lanes, "ceremony_straus", TUNER_CEREMONY_REPS)
+    run_tuner(rv_ * (rn_ + 1) * rn_ * rt_, "ceremony_msm_w8", TUNER_CEREMONY_REPS)
     KernelConfig().apply()
 
     log("dkg walls (s):", json.dumps(walls))
@@ -1526,7 +1543,16 @@ NODE_VALIDATORS = 16  # a common DV cluster's size; the cluster's VCs sign on th
 NODE_SLOT = 48.0
 NODE_SLOTS_PER_EPOCH = 32
 NODE_LIMIT = 4.0  # PERF.md section 2: slot start to broadcast, s
-NODE_BOOT = 5.0  # genesis this long after the cluster is built: the boot warm-up (1-3 s) runs first
+# genesis this long after the cluster is built: the boot warm-up (2.7-3.0 s)
+# and the remote nodes' probe flush (5.3-6.5 s) run first
+NODE_BOOT = 12.0
+NODE_REMOTE = (4, 5, 6, 7)  # the nodes that reach the card over TCP as remote tenants
+NODE_HOST = "127.0.0.1"  # where the crypto service listens
+# the remote clients' heartbeat timeout, s (the client's default is 3): the
+# 7 nodes, their validator clients and the service share one event loop
+# here, and at the default the loop's stalls cost heartbeats (PERF.md
+# section 4)
+NODE_HEARTBEAT = 10.0
 
 
 def run_node(seed: int, slot_duration: float) -> dict:
@@ -1536,24 +1562,36 @@ def run_node(seed: int, slot_duration: float) -> dict:
     CryptoPlaneService` over a `SlotCoalescer` (device decode) over
     `SlotCryptoPlane(make_mesh(), t=4)`; the tbls registry holds the
     TorchImpl on the card, whose generate_secret_key draws from the seed.
-    The service warms every pubshare and group pubkey before genesis, as a
-    node's boot does; the schedulers then run (echo consensus, the simnet's
-    default) until all 7 nodes have broadcast slot 0's attester duty (all
-    16 validators) and its proposer duty (randao, then the block). Fails
-    unless every one is broadcast before its deadline with byte-equal
-    signatures on all nodes that equal the host signature of the group
-    secret (recovered from t shares), the trackers report no missed duty,
-    no inline tbls batch call ran, no submission was shed, and only the
-    default kernels launched. Returns the kernels' launches in the run."""
+    One `core/cryptosvc_server.CryptoServiceServer` serves that service on
+    127.0.0.1 (port 0, the binary wire), one token a remote tenant
+    `node{i}-remote`, and `build_cluster(crypto_remote=)` gives each node
+    of NODE_REMOTE a `core/cryptosvc_client.RemotePlane` dialled to it,
+    its TenantPlane the local rung, as app/run.py wires a node with a
+    remote crypto service; the other nodes keep their TenantPlane. The
+    service warms every pubshare and group pubkey before genesis, as a
+    node's boot does; a client with a wrong token must be refused at the
+    handshake; each remote node verifies one of its own partials over the
+    wire (the probe that opens its connection to jobs); the schedulers
+    then run (echo consensus, the simnet's default) until all 7 nodes have
+    broadcast slot 0's attester duty (all 16 validators) and its proposer
+    duty (randao, then the block). Fails unless every one is broadcast
+    before its deadline with byte-equal signatures on all nodes that equal
+    the host signature of the group secret (recovered from t shares), the
+    trackers report no missed duty, no inline tbls batch call ran, no
+    submission was shed, only the default kernels launched, every remote
+    node's jobs ran remote (none local, no failover, shed or disconnect)
+    and every remote tenant's lanes rode the card's flushes. Returns the
+    kernels' launches in the run."""
     import asyncio
     import statistics
-
-    import torch
 
     from charon_tpu_torch import tbls
     from charon_tpu_torch.core.autotune import KernelConfig
     from charon_tpu_torch.core.cryptoplane import SlotCoalescer
     from charon_tpu_torch.core.cryptosvc import CryptoPlaneService
+    from charon_tpu_torch.core.cryptosvc_client import RemotePlane
+    from charon_tpu_torch.core.cryptosvc_server import CryptoServiceServer
+    from charon_tpu_torch.core.deadline import LATE_FACTOR, MIN_WINDOW_SECS
     from charon_tpu_torch.core.eth2data import SignedData
     from charon_tpu_torch.core.types import Duty, DutyType, pubkey_to_bytes
     from charon_tpu_torch.crypto import bls, shamir
@@ -1595,6 +1633,28 @@ def run_node(seed: int, slot_duration: float) -> dict:
         def aggregate_batch(self, groups):
             return self._inline("aggregate_batch", groups)
 
+    class TimedRemotePlane(RemotePlane):
+        """A RemotePlane that keeps each remote job's round trip beside the
+        attribution brief of its flush that the server sent with the
+        result (the brief the client rebases onto its own clock)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.trips: list = []  # (kind, lanes, round trip s, brief or None)
+            self._briefs: dict = {}
+
+        def _on_result(self, msg):
+            if msg.stats is not None:
+                self._briefs[msg.job_id] = msg.stats
+            super()._on_result(msg)
+
+        async def _round_trip(self, kind, args, lanes, deadline):
+            job_id = self._seq + 1  # the job's number: the base class takes it before its first await
+            t0 = time.perf_counter()
+            value = await super()._round_trip(kind, args, lanes, deadline)
+            self.trips.append((kind, lanes, time.perf_counter() - t0, self._briefs.pop(job_id, None)))
+            return value
+
     KernelConfig().apply()
     impl = SeededTorchImpl()
     tbls.set_implementation(impl)
@@ -1615,14 +1675,48 @@ def run_node(seed: int, slot_duration: float) -> dict:
 
     coal = SlotCoalescer(plane, impl=impl, stats_hook=on_flush)
     svc = CryptoPlaneService(coal)
-    t0 = time.perf_counter()
-    cluster = build_cluster(
-        n=NODE_N, t=NODE_T, num_validators=NODE_VALIDATORS, slot_duration=slot_duration,
-        slots_per_epoch=NODE_SLOTS_PER_EPOCH, genesis_time=time.time() + NODE_BOOT, crypto_service=svc,
-    )
-    log(f"node: {NODE_N} nodes, {NODE_T}-of-{NODE_N}, {NODE_VALIDATORS} validators built in "
-        f"{time.perf_counter() - t0:.1f} s; slot {slot_duration} s, genesis in "
-        f"{cluster.beacon.genesis_time - time.time():.1f} s")
+    tokens = {f"node{i}-remote": f"node{i}-token-{seed}" for i in NODE_REMOTE}
+    server = CryptoServiceServer(svc, tokens, NODE_HOST, 0, register_tenants=True)
+    # a remote job may wait as long as its duty's deadline window: one flush
+    # on the card costs 4.7-22.6 s, above the client's default of 10 s
+    request_timeout = max(LATE_FACTOR * slot_duration, MIN_WINDOW_SECS)
+    remotes: dict = {}
+    events: list = []  # (node, kind, seconds into slot 0) of every connect, heartbeat miss and disconnect
+
+    def observer(share_idx):
+        def observe(kind, **fields):
+            if kind in ("connect", "heartbeat_miss", "disconnect", "connect_fail"):
+                events.append((share_idx, kind, round(time.time() - clock.slot_start(0), 3)))
+
+        return observe
+
+    def crypto_remote(share_idx, tenant_plane):
+        if share_idx not in NODE_REMOTE:
+            return tenant_plane
+        tid = f"node{share_idx}-remote"
+        remotes[share_idx] = TimedRemotePlane(
+            NODE_HOST, server.port, tid, tokens[tid], local=tenant_plane, request_timeout=request_timeout,
+            heartbeat_timeout=NODE_HEARTBEAT, observer=observer(share_idx),
+        )
+        return remotes[share_idx]
+
+    async def boot():
+        await server.start()
+        t0 = time.perf_counter()
+        cluster = build_cluster(
+            n=NODE_N, t=NODE_T, num_validators=NODE_VALIDATORS, slot_duration=slot_duration,
+            slots_per_epoch=NODE_SLOTS_PER_EPOCH, genesis_time=time.time() + NODE_BOOT, crypto_service=svc,
+            crypto_remote=crypto_remote,
+        )
+        log(f"node: {NODE_N} nodes, {NODE_T}-of-{NODE_N}, {NODE_VALIDATORS} validators built in "
+            f"{time.perf_counter() - t0:.1f} s; slot {slot_duration} s, genesis in "
+            f"{cluster.beacon.genesis_time - time.time():.1f} s; nodes {list(NODE_REMOTE)} remote tenants of the "
+            f"service at {NODE_HOST}:{server.port} (request timeout {request_timeout:.0f} s, heartbeat timeout "
+            f"{NODE_HEARTBEAT:.0f} s)")
+        return cluster
+
+    runner = asyncio.Runner()
+    cluster = runner.run(boot())
     beacon, fork = cluster.beacon, cluster.fork
     clock = beacon.clock()
     slot = 0
@@ -1634,6 +1728,62 @@ def run_node(seed: int, slot_duration: float) -> dict:
         props = sum(1 for p, _ in beacon.proposals if p.slot == slot)
         return atts >= NODE_N * NODE_VALIDATORS and props >= NODE_N
 
+    async def connected(client, what: str) -> None:
+        t0 = time.time()
+        while client.state == "down":
+            if time.time() > t0 + 30:
+                raise AssertionError(f"node: {what} did not connect in 30 s: {client.disconnects}")
+            await asyncio.sleep(0.01)
+
+    async def remote_boot():
+        """The remote nodes dial the service; a client with a wrong token is
+        refused at the handshake; each remote node verifies one of its own
+        partials over the wire, the probe after which its connection takes
+        every job."""
+        refused_before = server.auth_failures
+        bad = RemotePlane(NODE_HOST, server.port, "node4-remote", "not-the-token", local=remotes[4])
+        await bad.start()
+        t0 = time.time()
+        while server.auth_failures == refused_before and time.time() < t0 + 30:
+            await asyncio.sleep(0.01)
+        await bad.close()
+        if server.auth_failures == refused_before or bad.connects or bad.remote_jobs or bad.local_jobs:
+            raise AssertionError(f"node: the wrong-token client was not refused: {server.auth_failures} refusals, "
+                                 f"{bad.connects} connects")
+        log(f"node: a client with a wrong token refused at the handshake ({server.auth_failures} refusal(s))")
+        for rp in remotes.values():
+            await rp.start()
+        for idx, rp in remotes.items():
+            await connected(rp, f"node {idx}'s RemotePlane")
+        gpk = cluster.group_pubkeys[0]
+        root = hashlib.sha256(b"node boot probe").digest()
+
+        async def probe(idx, rp):
+            share = cluster.share_keys[idx - 1][gpk]
+            item = (cluster.pubshares_by_idx[idx][gpk], root, impl.sign(share, root))
+            if await rp.verify([item]) != [True] or rp.state != "up" or rp.remote_jobs != 1:
+                raise AssertionError(f"node {idx}: the probe did not settle remote: {rp.state}, {rp.failovers}")
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(probe(idx, rp) for idx, rp in remotes.items()))
+        log(f"node: remote nodes {sorted(remotes)} connected and probed in {time.perf_counter() - t0:.2f} s; "
+            f"genesis in {beacon.genesis_time - time.time():.1f} s")
+        for rp in remotes.values():
+            rp.trips.clear()
+
+    lags: list = []  # (seconds late, seconds into slot 0) of the event loop's late ticks
+
+    async def loop_lag():
+        """The event loop's stalls, as the lateness of a 0.1 s tick: the
+        remote clients' heartbeats and the server's echoes share this loop
+        with the 7 nodes' workflows and validator clients."""
+        while True:
+            t0 = time.perf_counter()
+            await asyncio.sleep(0.1)
+            late = time.perf_counter() - t0 - 0.1
+            if late > 0.25:
+                lags.append((round(late, 3), round(time.time() - clock.slot_start(0), 1)))
+
     async def drive():
         pubkeys = [p for pubs in cluster.pubshares_by_idx.values() for p in pubs.values()]
         pubkeys += [pubkey_to_bytes(pk) for pk in cluster.group_pubkeys]
@@ -1641,10 +1791,12 @@ def run_node(seed: int, slot_duration: float) -> dict:
         log(f"node boot warm-up: {json.dumps(warm)}; genesis in {beacon.genesis_time - time.time():.1f} s")
         if warm["pubkey"]["device"] != len(set(pubkeys)):
             raise AssertionError(f"node warm-up: {warm}")
+        await remote_boot()
         walls.clear()
         stats.clear()
         MK.reset_launches()
         tasks = [asyncio.create_task(node.scheduler.run()) for node in cluster.nodes]
+        tasks.append(asyncio.create_task(loop_lag()))
         beat = time.time()
         try:
             while not done():
@@ -1660,8 +1812,16 @@ def run_node(seed: int, slot_duration: float) -> dict:
                         f"attestations and {sum(1 for p, _ in beacon.proposals if p.slot == slot)} blocks broadcast"
                     )
                 await asyncio.sleep(0.05)
-            torch.cuda.synchronize()
+            # the launches up to the last broadcast: the device thread goes on
+            # with the next slot's flushes, and waiting for the card to drain
+            # them (30-45 s) would time them too
             run_launches = dict(MK.LAUNCHES)
+            # the remote clients as the duties completed (closing them below
+            # fails the jobs of later slots still in flight over to local)
+            remote_run.update({idx: {
+                "remote_jobs": rp.remote_jobs, "local_jobs": rp.local_jobs, "failovers": dict(rp.failovers),
+                "sheds": dict(rp.sheds), "disconnects": dict(rp.disconnects), "trips": list(rp.trips),
+            } for idx, rp in remotes.items()})
             reports = {
                 (node.share_idx, d.type.name): await node.tracker.duty_expired(d)
                 for node in cluster.nodes
@@ -1670,15 +1830,26 @@ def run_node(seed: int, slot_duration: float) -> dict:
         finally:
             for node in cluster.nodes:
                 node.scheduler.stop()
+            for task in tasks:  # a stopped scheduler sleeps on until the next slot starts (up to 48 s)
+                task.cancel()
             await asyncio.gather(*tasks, return_exceptions=True)
         return run_launches, reports
 
+    remote_run: dict = {}
+
+    async def shut_down():
+        for rp in remotes.values():
+            await rp.close()
+        await server.close()
+
     try:
         t0 = time.perf_counter()
-        launches, reports = asyncio.run(drive())
+        launches, reports = runner.run(drive())
         log(f"node: slot {slot}'s attester and proposer duties broadcast by all {NODE_N} nodes; "
             f"run {time.perf_counter() - t0:.1f} s")
     finally:
+        runner.run(shut_down())
+        runner.close()
         svc.close()
         coal.close()
         tbls.set_implementation(None)
@@ -1719,20 +1890,45 @@ def run_node(seed: int, slot_duration: float) -> dict:
         raise AssertionError(f"node: the trackers report missed duties {missed}")
     if any(impl.inline.values()):
         raise AssertionError(f"node: inline tbls calls ran: {impl.inline}")
-    shed = {f"node{i}": svc.tenant(f"node{i}").shed for i in range(1, NODE_N + 1)}
+    tenants = [f"node{i}" for i in range(1, NODE_N + 1)] + sorted(tokens)
+    shed = {tid: svc.tenant(tid).shed for tid in tenants}
     if any(shed.values()):
         raise AssertionError(f"node: the service shed submissions: {shed}")
     _check_launches(launches, "node", DEFAULT_KERNELS, INT8_KERNELS)
+    # the remote nodes: every job over the wire, their lanes in the card's flushes
+    log(f"node: event loop stalls over 0.25 s (s late, s into slot 0), the worst first: "
+        f"{sorted(lags, reverse=True)[:12]}; {sum(1 for x, _ in lags if x > 1)} over 1 s, "
+        f"{sum(1 for x, _ in lags if x > 2)} over 2 s; remote client events (node, kind, s into slot 0): {events}")
+    flushed: dict[str, int] = {}
+    for st in stats:
+        for tid, lanes in st.tenant_lanes:
+            flushed[tid] = flushed.get(tid, 0) + lanes
+    for idx, run in sorted(remote_run.items()):
+        tid = remotes[idx].tenant_id
+        faults = {k: run[k] for k in ("failovers", "sheds", "disconnects")}
+        if run["remote_jobs"] <= 1 or run["local_jobs"] or any(faults.values()):
+            raise AssertionError(f"node {idx}: {run['remote_jobs']} remote jobs (1 the probe), {run['local_jobs']} "
+                                 f"local, {faults}")
+        if not flushed.get(tid) or not svc.tenant(tid).completed_lanes:
+            raise AssertionError(f"node {idx}: tenant {tid} has no lanes in the card's flushes: {flushed}")
+        wired = [(kind, lanes, rt, b["flush_seconds"]) for kind, lanes, rt, b in run["trips"] if b is not None]
+        log(f"node {idx} remote: {run['remote_jobs'] - 1} jobs after the probe, tenant {tid} "
+            f"{svc.tenant(tid).admitted_jobs} jobs and {svc.tenant(tid).completed_lanes} lanes in all, {flushed[tid]} "
+            "lanes in this run's flushes; round trip vs the server's flush wall, s (kind, lanes, round trip, flush, "
+            "difference): " + json.dumps([(k, n, round(rt, 3), round(f, 3), round(rt - f, 3)) for k, n, rt, f in wired])
+            + f"; {len(run['trips']) - len(wired)} results without a brief")
 
     # slot start to broadcast, per duty and node
     start = clock.slot_start(slot)
-    lat: dict[str, list] = {}
+    lat: dict[tuple, list] = {}
     for node in cluster.nodes:
+        where = "remote" if node.share_idx in NODE_REMOTE else "in-process"
         for duty in (att_duty, prop_duty):
             delays = [d for dd, d in node.bcast.broadcast_delay if dd == duty]
-            lat.setdefault(duty.type.name.lower(), []).append(max(delays))
-    for name, xs in lat.items():
-        log(f"node {name}: slot start to broadcast over {NODE_N} nodes: min {min(xs):.3f} s, median "
+            lat.setdefault((duty.type.name.lower(), "all"), []).append(max(delays))
+            lat.setdefault((duty.type.name.lower(), where), []).append(max(delays))
+    for (name, where), xs in lat.items():
+        log(f"node {name}: slot start to broadcast over {len(xs)} nodes ({where}): min {min(xs):.3f} s, median "
             f"{statistics.median(xs):.3f} s, max {max(xs):.3f} s (limit {NODE_LIMIT} s; slot {slot_duration} s, "
             f"deadline {deadline - start:.0f} s)")
     log(f"node: {len(stats)} flushes ({coal.flushes} in all, {coal.held_flushes} held for a busy lane), "
@@ -1740,8 +1936,8 @@ def run_node(seed: int, slot_duration: float) -> dict:
         "programs " + "; ".join(f"{fam} x{len(r)} {sum(s for s, _ in r):.3f} s over {sum(n for _, n in r)} lanes"
                                 for fam, r in sorted(walls.items())))
     log("node: tenants' lanes", json.dumps({
-        tid: [svc.tenant(tid).admitted_jobs, svc.tenant(tid).completed_lanes] for tid in sorted(shed)
-    }), "(jobs, lanes)")
+        tid: [svc.tenant(tid).admitted_jobs, svc.tenant(tid).completed_lanes] for tid in tenants
+    }), f"(jobs, lanes; the server served {server.served_jobs} jobs)")
     log("node launches:", json.dumps(launches))
     MK.reset_launches()
     return {name: launches[name] for name in KERNELS}
@@ -1837,7 +2033,12 @@ def main(argv=None) -> int:
                 log("  " + line.strip())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     if args.node_sweep:
-        return node_sweep(args.seed, args.node_sweep)
+        rc = node_sweep(args.seed, args.node_sweep)
+        # exit now: the coalescer's device thread may still run the next
+        # slot's flush (20 s on the card), whose jobs nobody awaits any more
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     if args.ceremony:
         from charon_tpu_torch.ops.blsops import BlsEngine
 

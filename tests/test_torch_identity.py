@@ -6,7 +6,7 @@ signed QBFT of core/consensus_qbft.py), held against the JAX package.
 
   * The JAX package's cases run on the port's modules (`reference_cases`):
     test_eth2util_ext.py; test_golden.py but `test_wire_envelope_golden`
-    (p2p/codec.py, ROADMAP item 13d), against the same committed golden
+    (bound in tests/test_torch_wire.py), against the same committed golden
     files; test_app_infra.py's lifecycle and fork-join cases (its other
     cases need app/health.py and app/metrics.py, item 13e); and the whole
     of test_security.py, whose signed-QBFT cases run over the port's k1util.

@@ -9,8 +9,9 @@ backends and the golden-file helper included (the tests install the
 port's PythonImpl into the port's tbls registry, as the reference
 simnet's own fixture does with the reference's). Left out, because they
 need modules the port does not have yet: test_qbft's consensus-sniffer
-case (app/metrics.py, ROADMAP item 13e), and test_spec_blocks' wire-codec
-and HTTP-router cases (p2p/codec.py, 13d; core/vapi_http.py, 13g).
+case (app/metrics.py, ROADMAP item 13e), and test_spec_blocks' HTTP-router
+case (core/vapi_http.py, 13g); its wire-codec case is bound in
+tests/test_torch_wire.py.
 
 Parity: the same seeded containers (attestation data, attestations,
 deneb blocks, builder registrations, sync messages, exits, aggregates)

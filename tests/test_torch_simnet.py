@@ -2,7 +2,7 @@
 and the node's duty workflow end to end, held against the JAX package.
 
   * The JAX package's tests/test_simnet.py cases run on the port's simnet
-    (`reference_cases`; the priority case waits for core/priority.py).
+    (`reference_cases`), the priority negotiation case included.
   * The slice as a whole: the reference simnet and the port's, built from
     the same seeded secrets and the same genesis and driven in one event
     loop, broadcast byte-equal attestations and blocks (SSZ and
@@ -14,7 +14,8 @@ and the node's duty workflow end to end, held against the JAX package.
     holds its TenantPlane, the duties complete with no inline tbls call,
     and the service's flushes carry every node's lanes.
   * The registry: unported build_cluster options raise
-    NotImplementedError, and get_implementation() raises without a card.
+    NotImplementedError (protocol_prefs, ported, builds), and
+    get_implementation() raises without a card.
     Clusters here run on the port's host backends (NativeImpl where
     native/libcharon_native.so loads, else PythonImpl).
   * Signed QBFT: a cluster whose messages are k1-signed over the port's
@@ -57,9 +58,7 @@ from charon_tpu_torch.testutil import simnet as port_simnet
 
 torch.set_num_threads(1)  # tiny tensors: more intra-op threads only spin
 
-SIMNET_CASES = export_cases(
-    reference_cases("test_simnet"), globals(), skip=("test_simnet_priority_switches_protocol_mid_run",)
-)
+SIMNET_CASES = export_cases(reference_cases("test_simnet"), globals())
 
 
 def _host_backend(package: str = "charon_tpu_torch"):
@@ -287,7 +286,14 @@ def test_mem_transport_delivers_to_every_peer_at_once():
     ids=["chaos", "protocol_prefs", "flightrec"],
 )
 def test_unported_build_cluster_options_raise(option):
+    """chaos and flightrec raise, naming their ROADMAP item; protocol_prefs
+    (core/priority.py, ported with the wire) builds every node on one
+    priority fabric."""
     port_tbls.set_implementation(PythonImpl())
+    if "protocol_prefs" in option:
+        cluster = port_simnet.build_cluster(n=4, t=3, **option)
+        assert len(cluster.nodes) == 4
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         port_simnet.build_cluster(n=4, t=3, **option)
 
