@@ -11,7 +11,11 @@ its multi-tenant service, and the node's duty workflow), `tbls/` (the
 backend registry and the `TorchImpl` backend), `dkg/` (the FROST and
 resharing ceremonies), `eth2util/` and `app/` (host copies the workflow
 needs: SSZ and signing roots, logging, retries, tracing), `testutil/`
-(beacon and validator mocks, the in-process cluster), and `convert.py`
-(limb arrays between the two packages' layouts). Entry points run on the
-CUDA card unless the caller passes device="cpu".
+(beacon and validator mocks, the in-process cluster, the multi-process
+compose harness), `cmd/` (the `charon` CLI: `python -m
+charon_tpu_torch.cmd.cli`), and `convert.py` (limb arrays between the two
+packages' layouts). Entry points run on the CUDA card unless the caller
+passes device="cpu".
 """
+
+__version__ = "0.1.0"

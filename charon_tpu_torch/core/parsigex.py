@@ -150,12 +150,10 @@ class Eth2Verifier:
 class MemTransport:
     """Loopback wiring of n ParSigEx components (in-process simnet).
 
-    A send reaches every peer concurrently, as the p2p broadcast writes
-    to every peer at once (ref: p2p sender fan-out), so one receiver's
-    verification never delays the next peer's delivery. Deliveries are
-    isolated per destination (ref: p2p sender failures are per-peer):
-    one receiver's downstream failure must neither skip the remaining
-    peers nor cascade back into the sender's own duty pipeline."""
+    Deliveries are isolated per destination (ref: p2p sender failures
+    are per-peer): one receiver's downstream failure must neither skip
+    the remaining peers nor cascade back into the sender's own duty
+    pipeline."""
 
     def __init__(self) -> None:
         self.nodes: list["ParSigEx"] = []
@@ -171,7 +169,9 @@ class MemTransport:
         # ONLY through the frame's tctx, as it would over real sockets
         from charon_tpu_torch.app.tracer import detached
 
-        async def deliver(node: "ParSigEx") -> None:
+        for node in self.nodes:
+            if node.share_idx == from_idx:
+                continue
             try:
                 with detached():
                     await node.receive(
@@ -187,10 +187,6 @@ class MemTransport:
                     duty=str(duty),
                     err=f"{type(e).__name__}: {e}",
                 )
-
-        await asyncio.gather(
-            *(deliver(node) for node in self.nodes if node.share_idx != from_idx)
-        )
 
 
 class ParSigEx:

@@ -491,7 +491,11 @@ class _Engine:
 
         def restart_timer():
             nonlocal timer_task
-            if timer_task is not None:
+            if timer_task is not None and timer_task is not asyncio.current_task():
+                # a fired timer restarts the timer from inside its own
+                # task (_on_timeout): cancelling that task would cancel
+                # the round change it broadcasts next, at the
+                # broadcast's first suspension (a TCP send's)
                 timer_task.cancel()
             self._timer_round = self.round
             # duration computed NOW, not when the task first runs: the

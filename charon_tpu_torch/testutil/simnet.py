@@ -12,8 +12,8 @@ tenant `node{i}` of the given `core/cryptosvc.CryptoPlaneService` and its
 SigAgg, ValidatorAPI and Eth2Verifier hold that TenantPlane, so on one
 card the n nodes are n tenants of one slot plane; with `crypto_remote=`
 some of them reach it over TCP as remote tenants
-(`core/cryptosvc_client.RemotePlane`). Options whose modules the port
-does not have yet (chaos, flightrec) raise NotImplementedError.
+(`core/cryptosvc_client.RemotePlane`). `chaos`, whose module the port
+does not have yet, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -126,6 +126,19 @@ class SimCluster:
             if plane is not None and hasattr(plane, "warm_caches"):
                 await plane.warm_caches(pubkeys=pubkeys)
 
+    def dump_flight(self, out_dir: str) -> list[str]:
+        """Dump every node's flight-recorder ring (flightrec=True
+        builds) into out_dir; returns the per-node dump paths, ready
+        for app/flightrec.merge_jsonl cross-node reconstruction."""
+        paths: list[str] = []
+        for node in self.nodes:
+            if node.flightrec is None:
+                continue
+            path = f"{out_dir}/node{node.share_idx}.flight.jsonl"
+            node.flightrec.dump_jsonl(path, trigger="demand")
+            paths.append(path)
+        return paths
+
 
 @dataclass
 class SimNode:
@@ -151,6 +164,9 @@ class SimNode:
     # core/evidence.EvidenceRegistry — per-node Byzantine detections,
     # same wiring as production (app/run.py)
     evidence: object | None = None
+    # app/flightrec.FlightRecorder — per-node post-mortem ring, same
+    # hook chains as production (flightrec=True builds)
+    flightrec: object | None = None
 
 
 class SimHostPlane:
@@ -222,9 +238,11 @@ def build_cluster(
     """Create keys and wire n in-process nodes (ref: app/app.go simnet +
     cluster/test_cluster.go generator, redesigned for asyncio).
 
-    `chaos` (the fault-injection plane, testutil/chaos.py) and
-    `flightrec` (app/flightrec.py) need modules the port does not have
-    yet and raise NotImplementedError.
+    `chaos` (the fault-injection plane, testutil/chaos.py) needs a
+    module the port does not have yet and raises NotImplementedError.
+    `flightrec` gives every node its own post-mortem ring with the
+    production hook chains (evidence, round changes, duty outcomes,
+    flush summaries); dump with cluster.dump_flight().
 
     `protocol_prefs` gives node i the protocol preference list
     `protocol_prefs[i - 1]` and joins every node to one in-memory
@@ -253,11 +271,6 @@ def build_cluster(
         raise NotImplementedError(
             "build_cluster(chaos=...) needs testutil/chaos.py, not ported "
             "yet (ROADMAP item 13f)"
-        )
-    if flightrec:
-        raise NotImplementedError(
-            "build_cluster(flightrec=True) needs app/flightrec.py, not "
-            "ported yet (ROADMAP item 13e)"
         )
     if crypto_service is not None and crypto_plane:
         raise ValueError("crypto_service and crypto_plane exclude each other")
@@ -332,6 +345,7 @@ def build_cluster(
                 tracing_on=tracing_on,
                 trace_dir=trace_dir,
                 crypto_plane=crypto_plane,
+                flightrec=flightrec,
             )
         )
     return cluster
@@ -349,6 +363,7 @@ def _build_node(
     tracing_on: bool = False,
     trace_dir: str | None = None,
     crypto_plane: bool = False,
+    flightrec: bool = False,
 ) -> SimNode:
     beacon = cluster.beacon
     fork = cluster.fork
@@ -362,19 +377,28 @@ def _build_node(
         )
         node_tracer = Tracer(jsonl_path=jsonl)
 
+    rec = None
+    if flightrec:
+        from charon_tpu_torch.app import flightrec as flightrec_mod
+
+        rec = flightrec_mod.FlightRecorder(node=f"node{share_idx}")
+
     plane = None
     if crypto_plane:
         from charon_tpu_torch.app.tracer import current_ctx, plane_span_bridge
         from charon_tpu_torch.core.cryptoplane import SlotCoalescer
         from charon_tpu_torch.tbls.torch_impl import TorchImpl
 
+        plane_stats = plane_span_bridge(node_tracer)
+        if rec is not None:
+            plane_stats = flightrec_mod.stats_hook(rec, inner=plane_stats)
         # the stand-in plane decodes on the host: the TorchImpl only
         # holds the point caches, so it lives on the CPU
         plane = SlotCoalescer(
             SimHostPlane(cluster.t),
             window=0.005,
             decode_workers=2,
-            stats_hook=plane_span_bridge(node_tracer),
+            stats_hook=plane_stats,
             impl=TorchImpl(device="cpu"),
             submit_ctx=current_ctx,
         )
@@ -387,7 +411,9 @@ def _build_node(
 
     from charon_tpu_torch.core.evidence import EvidenceRegistry
 
-    evidence = EvidenceRegistry()
+    evidence = EvidenceRegistry(
+        hook=flightrec_mod.byzantine_hook(rec) if rec is not None else None
+    )
     dutydb = DutyDB()
     parsigdb = ParSigDB(threshold=cluster.t, evidence=evidence)
     sigagg = SigAgg(
@@ -414,6 +440,8 @@ def _build_node(
             tracer=node_tracer,
             evidence=evidence,
         )
+        if rec is not None:
+            qc.on_round_change = flightrec_mod.consensus_hook(rec)
         consensus = ConsensusController(qc)
         # echo stays registered as a switchable alternate so priority
         # negotiation can change the protocol mid-run
@@ -473,6 +501,8 @@ def _build_node(
         peer_share_indices=list(range(1, cluster.n + 1)),
         threshold=cluster.t,
     )
+    if rec is not None:
+        tracker.subscribe(flightrec_mod.duty_hook(rec))
 
     options = [tracking(tracker), spawn_fetch]
     if node_tracer is not None:
@@ -566,4 +596,5 @@ def _build_node(
         tenant_plane=tenant_plane,
         parsigex=parsigex,
         evidence=evidence,
+        flightrec=rec,
     )

@@ -94,30 +94,34 @@ Phases, in order; any failure exits non-zero and prints no result:
      configuration (K4 Fp and Fr, never K1-K3; the default waves the
      reverse); the tuner's ceremony axes at the waves' lanes. Each wave's
      wall, lanes, launches and peak device memory;
- 10. the node's duty workflow, in a process of its own (as a node boots;
-     `--node-sweep <slot>`): a 4-of-7, 16-validator cluster
-     (testutil/simnet.build_cluster) whose 7 nodes are tenants of ONE
-     core/cryptosvc.CryptoPlaneService over a SlotCoalescer (device
-     decode) over SlotCryptoPlane(make_mesh(), t=4), the tbls registry
-     holding the card's TorchImpl with seeded keys. Nodes 1-3 hold their
-     TenantPlane in process; nodes 4-7 reach the card only over TCP, each
-     through a core/cryptosvc_client.RemotePlane (its TenantPlane the
-     local rung) dialled to one core/cryptosvc_server.CryptoServiceServer
-     on 127.0.0.1 that serves the same service, one token a tenant. The
-     boot warm-up of every pubshare and group pubkey, a client with a
-     wrong token refused at the handshake, one probe verify a remote
-     node, then the schedulers until all 7 nodes broadcast slot 0's
-     attester duty (16 validators) and proposer duty (randao, then the
-     block) before their deadline, at --node-slot seconds a slot:
-     byte-equal signatures across the nodes, equal to the host signature
-     of the group secret recovered from t shares, no missed duty in any
-     tracker, no inline tbls call, nothing shed, K1-K3 only; every remote
-     node's jobs remote (none local, no failover, shed or disconnect)
-     and its tenant's lanes in the card's flushes. Slot start to
-     broadcast per duty for the in-process and the remote nodes (min,
-     median, max), each flush's jobs, lanes, wall and tenants, each
-     remote job's round trip beside the server's flush wall for it, the
-     launches;
+ 10. the node binary, in a process of its own (`--node-sweep <slot>`): a
+     4-of-7, 16-validator cluster as seven `charon run` nodes. Its
+     directories come from testutil/compose.generate through the port's
+     `create-cluster` (written by a process of its own,
+     `--make-node-cluster`, started after phase 4's tuner while the card
+     works); its ports are picked as the nodes launch. Node 0 runs in the
+     phase's process through app/run.run with the Config `cmd/cli` builds
+     from its line, serving the card's plane (TorchImpl, SlotCryptoPlane
+     and coalescer behind the tenant service) over TCP; its boot loads
+     phase 4's tuner profile, prewarms (one verify bucket) and warms the
+     point caches. Nodes 1-6 are `python -m charon_tpu_torch.cmd.cli run`
+     processes whose RemotePlane dials node 0 (their own planes only the
+     local rung; no tuner, prewarm or warm-up). k1 TCP p2p, QBFT, each
+     node's validator mock and flight recorder as build_node wires them.
+     Genesis is NODE_BOOT s after the launch. Before it a wrong-token
+     client is refused and each remote node's probe settles on one
+     verify. By slot 0's deadline, at --node-slot seconds a slot: node 0's
+     attestations and block equal the host signature of the group secret
+     (t keystore shares); every node broadcasts the attester duty (16
+     validators), randao and block (its /debug/traces and /metrics); node
+     0's tracker reports no miss, no inline tbls call, nothing shed, the
+     kernels of the configuration its tuner profile chose (K1-K3 or
+     K4-K6, not both); every remote node without failover, shed or
+     disconnect and with no program on its own plane; every node's flight
+     dump merged by `cli flight merge`. Each node's boot, the card's
+     processes, node 0's flushes with its device memory and RSS, slot
+     start to broadcast per duty (node 0, remote), QBFT rounds, planeprof,
+     the event loop's stalls;
  11. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
      during phases 5-6), each beside its bound;
@@ -448,11 +452,13 @@ TUNER_REPS = 2
 TUNER_CEREMONY_REPS = 1
 
 
-def run_tuner(lanes: int, axis: str = "mxu_mont", reps: int = TUNER_REPS) -> None:
+def run_tuner(lanes: int, axis: str = "mxu_mont", reps: int = TUNER_REPS, persist: bool = False) -> None:
     """autotune.resolve on the card over one axis at `lanes` (the duty's or
     the wave's lane count), `reps` benches a value, with its profile in
-    a scratch directory under the build directory. Its timings, spread and
-    choice are printed; the phases set their configurations themselves."""
+    a scratch directory under the build directory, or, with `persist`, at
+    node_profile_path(), where the node phase's node 0 loads it at boot.
+    Its timings, spread and choice are printed; the phases set their
+    configurations themselves."""
     import tempfile
     from pathlib import Path
 
@@ -461,11 +467,12 @@ def run_tuner(lanes: int, axis: str = "mxu_mont", reps: int = TUNER_REPS) -> Non
 
     MK.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=MK.BUILD_DIR) as tmp:
+        path = node_profile_path() if persist else Path(tmp) / autotune.PROFILE_BASENAME
+        path.parent.mkdir(parents=True, exist_ok=True)
         res = autotune.resolve(
-            "force", Path(tmp) / autotune.PROFILE_BASENAME,
-            lanes=lanes, reps=reps, candidates={axis: autotune.CANDIDATES[axis]},
+            "force", path, lanes=lanes, reps=reps, candidates={axis: autotune.CANDIDATES[axis]},
         )
-        prof = autotune.load_profile(Path(tmp) / autotune.PROFILE_BASENAME)
+        prof = autotune.load_profile(path)
     on, off, spread = (res.timings[axis][k] * 1e3 for k in ("on", "off", "spread"))
     on_name, off_name = TUNER_VALUES[axis]
     log(f"tuner: outcome {res.outcome}, {res.bench_runs} bench runs at {lanes} lanes "
@@ -1137,11 +1144,13 @@ DKG_ME = 1  # the node whose round 2 the phase runs
 DKG_SAMPLE = 64  # lanes of each wave held against the host oracle
 DKG_INT8_LANES = 1024
 # the rotation: n, t, validators; cut from bench_dkg.py's accelerator shape
-# (4, 3, 16) to three nodes to make room for the node phase (each node's
-# round 2 is a few launch-bound ladders whatever its lanes)
+# (4, 3, 16) to three nodes, the fewest `create-dkg` accepts, to make room
+# for the node phase (each node's round 2 is a few launch-bound ladders
+# whatever its lanes)
 DKG_RESHARE = (3, 2, 16)
-# the cluster ceremony (dkg/ceremony.run_dkg): n, t, validators. Every tbls
-# call on the card is a few launch-bound programs whatever its lanes; with 2
+# the cluster ceremony (dkg/ceremony.run_dkg): n, t, validators. Three
+# operators, the fewest `create-dkg` accepts (cmd/cli.py). Every tbls call on
+# the card is a few launch-bound programs whatever its lanes; with 2
 # validators (the fewest that make the lock's signature an aggregate across
 # validators) the whole script ran 907-1047 s against its 950 s aim, so the
 # ceremony is cut to 1 (each node's verifies go from 4 to 2)
@@ -1531,11 +1540,11 @@ def run_ceremony(engine, seed: int, walls: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the node's duty workflow on the card
+# Phase 10: the node binary on the card
 # ---------------------------------------------------------------------------
 
 NODE_N, NODE_T = 7, 4  # BASELINE config 2's 4-of-7 split
-NODE_VALIDATORS = 16  # a common DV cluster's size; the cluster's VCs sign on the host
+NODE_VALIDATORS = 16  # a common DV cluster's size; the nodes' validator clients sign on the host
 # the default --node-slot, s: slot 0's duties missed their deadline at 12
 # (mainnet) and 24 s and met it at 36 s with the block broadcast 88-142 s
 # into the 180 s window; 48 s (deadline 240 s) keeps a margin against that
@@ -1543,402 +1552,665 @@ NODE_VALIDATORS = 16  # a common DV cluster's size; the cluster's VCs sign on th
 NODE_SLOT = 48.0
 NODE_SLOTS_PER_EPOCH = 32
 NODE_LIMIT = 4.0  # PERF.md section 2: slot start to broadcast, s
-# genesis this long after the cluster is built: the boot warm-up (2.7-3.0 s)
-# and the remote nodes' probe flush (5.3-6.5 s) run first
-NODE_BOOT = 12.0
-NODE_REMOTE = (4, 5, 6, 7)  # the nodes that reach the card over TCP as remote tenants
-NODE_HOST = "127.0.0.1"  # where the crypto service listens
-# the remote clients' heartbeat timeout, s (the client's default is 3): the
-# 7 nodes, their validator clients and the service share one event loop
-# here, and at the default the loop's stalls cost heartbeats (PERF.md
-# section 4)
-NODE_HEARTBEAT = 10.0
+NODE_HOST = "127.0.0.1"
+NODE_DUTIES = ("attester", "randao", "proposer")  # a slot's, in the broadcast spans' and counter's labels
+# genesis this long after the nodes are launched: node 0's boot (the tuner's
+# profile load, prewarm, the point-cache warm-up), the remote nodes' boots
+# and their probes run first. They took 36.0-58.0 s in node sweeps and
+# whole runs on the card (PERF.md section 4); a cluster not ready by
+# genesis fails the phase. Genesis at the launch, with the first slot after the
+# cluster is ready measured, missed that slot's deadline: the card does not
+# keep up with a slot every 48 s, so the slots of the boot pile up
+NODE_BOOT = 75.0
+# the remote nodes' own planes only back their RemotePlane up: no tuner,
+# prewarm or warm-up of their own
+NODE_REMOTE_FLAGS = ("--crypto-plane", "on", "--crypto-autotune", "off", "--crypto-plane-prewarm", "off",
+                     "--crypto-plane-warmup", "off")
 
 
-def run_node(seed: int, slot_duration: float) -> dict:
-    """A 4-of-7, 16-validator cluster's duties on the card, through the
-    node's entry points: `testutil.simnet.build_cluster(crypto_service=)`
-    wires 7 nodes as tenants node1..node7 of ONE `core/cryptosvc.
-    CryptoPlaneService` over a `SlotCoalescer` (device decode) over
-    `SlotCryptoPlane(make_mesh(), t=4)`; the tbls registry holds the
-    TorchImpl on the card, whose generate_secret_key draws from the seed.
-    One `core/cryptosvc_server.CryptoServiceServer` serves that service on
-    127.0.0.1 (port 0, the binary wire), one token a remote tenant
-    `node{i}-remote`, and `build_cluster(crypto_remote=)` gives each node
-    of NODE_REMOTE a `core/cryptosvc_client.RemotePlane` dialled to it,
-    its TenantPlane the local rung, as app/run.py wires a node with a
-    remote crypto service; the other nodes keep their TenantPlane. The
-    service warms every pubshare and group pubkey before genesis, as a
-    node's boot does; a client with a wrong token must be refused at the
-    handshake; each remote node verifies one of its own partials over the
-    wire (the probe that opens its connection to jobs); the schedulers
-    then run (echo consensus, the simnet's default) until all 7 nodes have
-    broadcast slot 0's attester duty (all 16 validators) and its proposer
-    duty (randao, then the block). Fails unless every one is broadcast
-    before its deadline with byte-equal signatures on all nodes that equal
-    the host signature of the group secret (recovered from t shares), the
-    trackers report no missed duty, no inline tbls batch call ran, no
-    submission was shed, only the default kernels launched, every remote
-    node's jobs ran remote (none local, no failover, shed or disconnect)
-    and every remote tenant's lanes rode the card's flushes. Returns the
-    kernels' launches in the run."""
-    import asyncio
-    import statistics
-
-    from charon_tpu_torch import tbls
-    from charon_tpu_torch.core.autotune import KernelConfig
-    from charon_tpu_torch.core.cryptoplane import SlotCoalescer
-    from charon_tpu_torch.core.cryptosvc import CryptoPlaneService
-    from charon_tpu_torch.core.cryptosvc_client import RemotePlane
-    from charon_tpu_torch.core.cryptosvc_server import CryptoServiceServer
-    from charon_tpu_torch.core.deadline import LATE_FACTOR, MIN_WINDOW_SECS
-    from charon_tpu_torch.core.eth2data import SignedData
-    from charon_tpu_torch.core.types import Duty, DutyType, pubkey_to_bytes
-    from charon_tpu_torch.crypto import bls, shamir
+def node_profile_path():
+    """Where phase 4 persists the tuner's profile, which node 0 loads at boot."""
+    from charon_tpu_torch.core import autotune
     from charon_tpu_torch.ops import mont_kernels as MK
-    from charon_tpu_torch.parallel import SlotCryptoPlane, make_mesh
+
+    return MK.BUILD_DIR / "node" / autotune.PROFILE_BASENAME
+
+
+def make_node_cluster(out_dir: str, slot_duration: float) -> dict:
+    """The node cell's cluster on disk: testutil/compose.generate through
+    the port's `create-cluster` (the host tbls backend: an in-memory
+    ceremony, FROST on the host) and every node's `cli run` line."""
+    from charon_tpu_torch.testutil import compose
+
+    t0 = time.perf_counter()
+    cfg = compose.generate(out_dir, n=NODE_N, threshold=NODE_T, validators=NODE_VALIDATORS,
+                           slot_duration=slot_duration, slots_per_epoch=NODE_SLOTS_PER_EPOCH)
+    log(f"node cluster: create-cluster ({NODE_N} nodes, {NODE_T}-of-{NODE_N}, {NODE_VALIDATORS} validators) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return cfg
+
+
+def _arg(argv: list, flag: str, value=None) -> list:
+    """argv with `flag`'s value replaced (or the flag dropped, value None)."""
+    i = argv.index(flag)
+    if value is None:
+        return argv[:i] + argv[i + 2:]
+    return argv[:i + 1] + [str(value)] + argv[i + 2:]
+
+
+def _launch_ports(nodes: list) -> tuple[list, int]:
+    """The nodes with fresh p2p, validator-API and monitoring ports in their
+    command lines, picked as they launch (compose.generate picked its own
+    when it wrote the cluster), and a port for node 0's crypto service."""
+    from charon_tpu_torch.testutil import compose
+
+    n = len(nodes)
+    ports = compose._free_ports(3 * n + 1)
+    p2p, vapi, mon = ports[:n], ports[n:2 * n], ports[2 * n:3 * n]
+    peers = ",".join(f"{NODE_HOST}:{p}" for p in p2p)
+    out = []
+    for i, node in enumerate(nodes):
+        argv = node["argv"]
+        for flag, value in (("--peers", peers), ("--p2p-port", p2p[i]), ("--validator-api-port", vapi[i]),
+                            ("--monitoring-port", mon[i])):
+            argv = _arg(argv, flag, value)
+        out.append({**node, "p2p_port": p2p[i], "validator_api_port": vapi[i], "monitoring_port": mon[i],
+                    "argv": argv})
+    return out, ports[-1]
+
+
+def _metric(text: str, name: str, **labels) -> float:
+    """The sum of a family's samples whose labels include `labels`."""
+    total = 0.0
+    for line in text.splitlines():
+        if not line.startswith(name + "{") and not line.startswith(name + " "):
+            continue
+        head, value = line.rsplit(" ", 1)
+        if all(f'{k}="{v}"' in head for k, v in labels.items()):
+            total += float(value)
+    return total
+
+
+def _samples(text: str, name: str) -> dict:
+    """{label string: value} of one family's samples."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            head, value = line.rsplit(" ", 1)
+            out[head[len(name):]] = float(value)
+    return out
+
+
+def _by(samples: dict, label: str) -> dict:
+    """{value of `label`: sample} of _samples' output."""
+    import re
+
+    out = {}
+    for head, value in samples.items():
+        m = re.search(rf'{label}="([^"]*)"', head)
+        out[m.group(1) if m else head] = value
+    return out
+
+
+def _get(url: str, timeout: float = 5.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _post(url: str, body, timeout: float = 30.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _rss_mib() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def _compute_apps() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    return "; ".join(line.strip() for line in out.stdout.splitlines()) or out.stderr.strip()
+
+
+def run_node(seed: int, slot_duration: float, cluster_dir: str | None = None) -> dict:
+    """A 4-of-7, 16-validator cluster as seven `charon run` nodes on the
+    card, through the node's entry points: `testutil/compose.generate`
+    writes the cluster with the port's `create-cluster` (or it was written
+    beforehand into `cluster_dir`) and each node's `cli run` line; the
+    ports are picked as the nodes launch, and genesis is NODE_BOOT s after
+    the launch. Node 0 runs in this process through `app.run.run(config,
+    stop)` with the Config that `cmd/cli.run_config` builds from its line,
+    `--no-tpu` replaced by `--crypto-plane on --crypto-serve <port>`: the
+    card's TorchImpl, its SlotCryptoPlane and coalescer behind the
+    tenant service, served over TCP to tokens for node1..node6; its boot
+    loads phase 4's tuner profile, prewarms (one verify bucket) and warms
+    the point caches. Nodes 1-6 are `python -m charon_tpu_torch.cmd.cli
+    run` processes with `--crypto-plane on --crypto-remote <node 0>` and
+    no tuner, prewarm or warm-up of their own: a RemotePlane each, its
+    own plane only the local rung. p2p is k1 TCP, consensus QBFT, each
+    node with its validator mock and flight recorder, as build_node wires
+    them. Before genesis a client with a wrong token is refused and each
+    remote node's RemotePlane settles its probe on one verify (a partial
+    exit signed with another node's share, refused with 400 by its
+    validator API). Fails unless, by slot 0's deadline: node 0's
+    attestations and block are the host signatures of the group secret
+    (recovered from t shares read from the keystores); every node
+    broadcasts the attester duty (16 validators), randao and block (its
+    /metrics and /debug/traces); node 0's tracker reports no missed duty;
+    no inline tbls call and nothing shed; node 0's process launches the
+    kernels of the configuration its tuner profile chose (K1-K3 and not
+    K4-K6, or the reverse); every remote node's
+    jobs ran remote (no failover, shed or disconnect) with its lanes in
+    node 0's flushes and no flush of its own coalescer; and after the stop
+    (SIGTERM to nodes 1-6, `stop` for node 0) every node's flight dump
+    merges (`cli flight merge`) into one timeline. Returns the kernels'
+    launches in node 0's process from genesis to the last broadcast.
+    On a missed deadline each node's slot-0 waterfall, consensus sniffer,
+    flight ring, metrics and log land in the cluster's diagnostics/."""
+    import asyncio
+    import signal
+    import statistics
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from charon_tpu_torch.app import run as app_run
+    from charon_tpu_torch.cmd import cli
+    from charon_tpu_torch.core import autotune
+    from charon_tpu_torch.core.cryptosvc_client import RemotePlane
+    from charon_tpu_torch.core.deadline import SlotClock
+    from charon_tpu_torch.core.eth2data import SignedData, VoluntaryExit
+    from charon_tpu_torch.core.types import Duty, DutyType
+    from charon_tpu_torch.crypto import shamir
+    from charon_tpu_torch.eth2util import keystore
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.parallel import SlotCryptoPlane
     from charon_tpu_torch.tbls.python_impl import PythonImpl, int_to_sk, sk_to_int
     from charon_tpu_torch.tbls.torch_impl import TorchImpl
-    from charon_tpu_torch.testutil.simnet import build_cluster
+    from charon_tpu_torch.testutil import compose
 
-    class SeededTorchImpl(TorchImpl):
-        """The registry's TorchImpl on the card, its secret keys drawn from
-        the seed; counts the inline crypto calls (none may run: the tenant
-        service carries every verify and recombine)."""
+    work = cluster_dir or tempfile.mkdtemp(prefix="node-cluster-", dir=MK.BUILD_DIR)
+    cfg_path = os.path.join(work, "compose.json")
+    cfg = json.load(open(cfg_path)) if os.path.exists(cfg_path) else make_node_cluster(work, slot_duration)
+    nodes, serve_port = _launch_ports(cfg["nodes"])
+    tokens = {f"node{i}": f"node{i}-token-{seed}-{random.Random(seed).getrandbits(64):x}" for i in range(1, NODE_N)}
+    profile = node_profile_path()
+    # node 0 boots on the profile's kernels, as a node on this card would
+    int8 = bool(autotune.load_profile(profile)["config"].get("mxu_mont"))
+    launched, idle = (INT8_KERNELS, DEFAULT_KERNELS) if int8 else (DEFAULT_KERNELS, INT8_KERNELS)
+    host = PythonImpl()
 
-        def __init__(self):
-            super().__init__()
-            self._rng = random.Random(f"node/{seed}")
-            self.inline: dict[str, int] = {}
+    # the cluster's keys: t shares a validator recover its group secret
+    with ThreadPoolExecutor(NODE_N) as pool:  # each keystore's pbkdf2 releases the GIL
+        shares = list(pool.map(lambda n: keystore.load_keys(os.path.join(n["data_dir"], "validator_keys")), nodes))
+    lock = json.load(open(os.path.join(nodes[0]["data_dir"], "cluster-lock.json")))
+    group_pks = [bytes.fromhex(v["distributed_public_key"][2:]) for v in lock["distributed_validators"]]
 
-        def generate_secret_key(self) -> bytes:
-            return int_to_sk(bls.keygen(self._rng.randbytes(32)))
+    def group_secret(v: int) -> bytes:
+        return int_to_sk(shamir.recover_secret({i + 1: sk_to_int(shares[i][v]) for i in range(NODE_T)}))
 
-        def _inline(self, name: str, *args):
-            self.inline[name] = self.inline.get(name, 0) + 1
-            return getattr(super(), name)(*args)
-
-        def verify(self, pubkey, data, sig):
-            return self._inline("verify", pubkey, data, sig)
-
-        def verify_batch(self, items):
-            return self._inline("verify_batch", items)
-
-        def verify_aggregate(self, pubkeys, data, sig):
-            return self._inline("verify_aggregate", pubkeys, data, sig)
-
-        def threshold_aggregate_batch(self, batch):
-            return self._inline("threshold_aggregate_batch", batch)
-
-        def aggregate_batch(self, groups):
-            return self._inline("aggregate_batch", groups)
-
-    class TimedRemotePlane(RemotePlane):
-        """A RemotePlane that keeps each remote job's round trip beside the
-        attribution brief of its flush that the server sent with the
-        result (the brief the client rebases onto its own clock)."""
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.trips: list = []  # (kind, lanes, round trip s, brief or None)
-            self._briefs: dict = {}
-
-        def _on_result(self, msg):
-            if msg.stats is not None:
-                self._briefs[msg.job_id] = msg.stats
-            super()._on_result(msg)
-
-        async def _round_trip(self, kind, args, lanes, deadline):
-            job_id = self._seq + 1  # the job's number: the base class takes it before its first await
-            t0 = time.perf_counter()
-            value = await super()._round_trip(kind, args, lanes, deadline)
-            self.trips.append((kind, lanes, time.perf_counter() - t0, self._briefs.pop(job_id, None)))
-            return value
-
-    KernelConfig().apply()
-    impl = SeededTorchImpl()
-    tbls.set_implementation(impl)
-    plane = SlotCryptoPlane(make_mesh(), t=NODE_T)
-    walls: dict = {}
-
-    def on_program(fam, seconds, lanes):
-        walls.setdefault(fam, []).append((seconds, lanes))
-
-    plane.on_program = on_program
-    stats: list = []
-
-    def on_flush(st):  # the coalescer's device thread, as each flush ends
-        stats.append(st)
-        log(f"node flush {len(stats)}: {st.jobs} jobs, {st.lanes} lanes, {st.flush_seconds:.3f} s, window "
-            f"{st.window:.3f} s, inflight {st.inflight}, ended {time.time() - clock.slot_start(0):.1f} s into slot 0, "
-            f"tenants {dict(st.tenant_lanes)}")
-
-    coal = SlotCoalescer(plane, impl=impl, stats_hook=on_flush)
-    svc = CryptoPlaneService(coal)
-    tokens = {f"node{i}-remote": f"node{i}-token-{seed}" for i in NODE_REMOTE}
-    server = CryptoServiceServer(svc, tokens, NODE_HOST, 0, register_tenants=True)
-    # a remote job may wait as long as its duty's deadline window: one flush
-    # on the card costs 4.7-22.6 s, above the client's default of 10 s
-    request_timeout = max(LATE_FACTOR * slot_duration, MIN_WINDOW_SECS)
-    remotes: dict = {}
-    events: list = []  # (node, kind, seconds into slot 0) of every connect, heartbeat miss and disconnect
-
-    def observer(share_idx):
-        def observe(kind, **fields):
-            if kind in ("connect", "heartbeat_miss", "disconnect", "connect_fail"):
-                events.append((share_idx, kind, round(time.time() - clock.slot_start(0), 3)))
-
-        return observe
-
-    def crypto_remote(share_idx, tenant_plane):
-        if share_idx not in NODE_REMOTE:
-            return tenant_plane
-        tid = f"node{share_idx}-remote"
-        remotes[share_idx] = TimedRemotePlane(
-            NODE_HOST, server.port, tid, tokens[tid], local=tenant_plane, request_timeout=request_timeout,
-            heartbeat_timeout=NODE_HEARTBEAT, observer=observer(share_idx),
-        )
-        return remotes[share_idx]
-
-    async def boot():
-        await server.start()
-        t0 = time.perf_counter()
-        cluster = build_cluster(
-            n=NODE_N, t=NODE_T, num_validators=NODE_VALIDATORS, slot_duration=slot_duration,
-            slots_per_epoch=NODE_SLOTS_PER_EPOCH, genesis_time=time.time() + NODE_BOOT, crypto_service=svc,
-            crypto_remote=crypto_remote,
-        )
-        log(f"node: {NODE_N} nodes, {NODE_T}-of-{NODE_N}, {NODE_VALIDATORS} validators built in "
-            f"{time.perf_counter() - t0:.1f} s; slot {slot_duration} s, genesis in "
-            f"{cluster.beacon.genesis_time - time.time():.1f} s; nodes {list(NODE_REMOTE)} remote tenants of the "
-            f"service at {NODE_HOST}:{server.port} (request timeout {request_timeout:.0f} s, heartbeat timeout "
-            f"{NODE_HEARTBEAT:.0f} s)")
-        return cluster
-
-    runner = asyncio.Runner()
-    cluster = runner.run(boot())
-    beacon, fork = cluster.beacon, cluster.fork
-    clock = beacon.clock()
+    # node 0: the Config that `cli run` builds from its compose line
+    genesis = time.time() + NODE_BOOT
+    argv0 = nodes[0]["argv"][3:]  # past `python -m charon_tpu_torch.cmd.cli`
+    argv0 = _arg(argv0, "--genesis-time", genesis)
+    argv0 = [a for a in argv0 if a != "--no-tpu"] + [
+        "--crypto-plane", "on", "--crypto-serve", str(serve_port), "--crypto-serve-host", NODE_HOST,
+        "--crypto-tenant", "node0", "--crypto-autotune", "auto", "--crypto-autotune-profile", str(profile),
+    ]
+    os.environ["CHARON_TPU_CRYPTO_SERVE_TOKENS"] = ",".join(f"{k}={v}" for k, v in tokens.items())
+    rc, config = cli.run_config(cli.build_parser().parse_args(argv0))
+    del os.environ["CHARON_TPU_CRYPTO_SERVE_TOKENS"]
+    if rc:
+        raise AssertionError(f"node 0: `cli run` refused its flags ({rc})")
+    clock = SlotClock(genesis, slot_duration)
     slot = 0
-    att_duty, prop_duty = Duty(slot, DutyType.ATTESTER), Duty(slot, DutyType.PROPOSER)
-    deadline = clock.duty_deadline(att_duty)
+    start = clock.slot_start(slot)
+    deadline = clock.duty_deadline(Duty(slot, DutyType.ATTESTER))
 
-    def done() -> bool:
-        atts = sum(1 for a in beacon.attestations if a.data.slot == slot)
-        props = sum(1 for p, _ in beacon.proposals if p.slot == slot)
-        return atts >= NODE_N * NODE_VALIDATORS and props >= NODE_N
+    # node 0's components, for the checks: the node that app.run.run builds
+    built: dict = {}
+    build_node = app_run.build_node
 
-    async def connected(client, what: str) -> None:
-        t0 = time.time()
-        while client.state == "down":
-            if time.time() > t0 + 30:
-                raise AssertionError(f"node: {what} did not connect in 30 s: {client.disconnects}")
-            await asyncio.sleep(0.01)
+    async def capture(config):
+        node = await build_node(config)
+        built["node"] = node
+        return node
 
-    async def remote_boot():
-        """The remote nodes dial the service; a client with a wrong token is
-        refused at the handshake; each remote node verifies one of its own
-        partials over the wire, the probe after which its connection takes
-        every job."""
-        refused_before = server.auth_failures
-        bad = RemotePlane(NODE_HOST, server.port, "node4-remote", "not-the-token", local=remotes[4])
-        await bad.start()
-        t0 = time.time()
-        while server.auth_failures == refused_before and time.time() < t0 + 30:
-            await asyncio.sleep(0.01)
-        await bad.close()
-        if server.auth_failures == refused_before or bad.connects or bad.remote_jobs or bad.local_jobs:
-            raise AssertionError(f"node: the wrong-token client was not refused: {server.auth_failures} refusals, "
-                                 f"{bad.connects} connects")
-        log(f"node: a client with a wrong token refused at the handshake ({server.auth_failures} refusal(s))")
-        for rp in remotes.values():
-            await rp.start()
-        for idx, rp in remotes.items():
-            await connected(rp, f"node {idx}'s RemotePlane")
-        gpk = cluster.group_pubkeys[0]
-        root = hashlib.sha256(b"node boot probe").digest()
+    inline: dict[str, int] = {}
+    inline_calls = ("verify", "verify_batch", "verify_aggregate", "threshold_aggregate_batch", "aggregate_batch")
+    originals = {name: getattr(TorchImpl, name) for name in inline_calls}
 
-        async def probe(idx, rp):
-            share = cluster.share_keys[idx - 1][gpk]
-            item = (cluster.pubshares_by_idx[idx][gpk], root, impl.sign(share, root))
-            if await rp.verify([item]) != [True] or rp.state != "up" or rp.remote_jobs != 1:
-                raise AssertionError(f"node {idx}: the probe did not settle remote: {rp.state}, {rp.failovers}")
+    def counted(name):
+        def call(self, *args, **kwargs):
+            inline[name] = inline.get(name, 0) + 1
+            return originals[name](self, *args, **kwargs)
 
-        t0 = time.perf_counter()
-        await asyncio.gather(*(probe(idx, rp) for idx, rp in remotes.items()))
-        log(f"node: remote nodes {sorted(remotes)} connected and probed in {time.perf_counter() - t0:.2f} s; "
-            f"genesis in {beacon.genesis_time - time.time():.1f} s")
-        for rp in remotes.values():
-            rp.trips.clear()
+        return call
 
-    lags: list = []  # (seconds late, seconds into slot 0) of the event loop's late ticks
+    prewarm = (SlotCryptoPlane.PREWARM_VERIFY_LANES, SlotCryptoPlane.PREWARM_RECOMBINE_LANES)
+    SlotCryptoPlane.PREWARM_VERIFY_LANES = PLANE_PREWARM_LANES  # the cut of phase 8 (PERF.md section 4)
+    SlotCryptoPlane.PREWARM_RECOMBINE_LANES = PLANE_PREWARM_RECOMBINE_LANES
+    app_run.build_node = capture
+    for name in inline_calls:
+        setattr(TorchImpl, name, counted(name))
+
+    flushes: list = []
+    lags: list = []
+    remote = {}  # node index -> Popen
+    boot: dict = {}  # node index -> seconds from launch to ready
+    scraped: dict = {}  # node index -> (metrics text, traces)
+    result: dict = {}
+    stop = asyncio.Event()
+
+    def on_flush(st):  # node 0's device thread, as each flush ends
+        stats = torch.cuda.memory_stats()
+        flushes.append(st)
+        log(f"node 0 flush {len(flushes)}: {st.jobs} jobs, {st.lanes} lanes, {st.flush_seconds:.3f} s, ended "
+            f"{time.time() - start:.1f} s into slot 0, tenants {dict(st.tenant_lanes)}; allocated "
+            f"{stats.get('allocated_bytes.all.current', 0) / 2**20:.1f} MiB, reserved "
+            f"{stats.get('reserved_bytes.all.current', 0) / 2**20:.1f} MiB, RSS {_rss_mib():.1f} MiB")
 
     async def loop_lag():
-        """The event loop's stalls, as the lateness of a 0.1 s tick: the
-        remote clients' heartbeats and the server's echoes share this loop
-        with the 7 nodes' workflows and validator clients."""
+        """Node 0's event-loop stalls, as the lateness of a 0.1 s tick: the
+        crypto server's heartbeat echoes share this loop with node 0's
+        workflow and validator client."""
         while True:
             t0 = time.perf_counter()
             await asyncio.sleep(0.1)
             late = time.perf_counter() - t0 - 0.1
             if late > 0.25:
-                lags.append((round(late, 3), round(time.time() - clock.slot_start(0), 1)))
+                lags.append((round(late, 3), round(time.time() - start, 1)))
 
-    async def drive():
-        pubkeys = [p for pubs in cluster.pubshares_by_idx.values() for p in pubs.values()]
-        pubkeys += [pubkey_to_bytes(pk) for pk in cluster.group_pubkeys]
-        warm = await svc.coalescer.warm_caches(pubkeys=pubkeys)
-        log(f"node boot warm-up: {json.dumps(warm)}; genesis in {beacon.genesis_time - time.time():.1f} s")
-        if warm["pubkey"]["device"] != len(set(pubkeys)):
-            raise AssertionError(f"node warm-up: {warm}")
-        await remote_boot()
-        walls.clear()
-        stats.clear()
-        MK.reset_launches()
-        tasks = [asyncio.create_task(node.scheduler.run()) for node in cluster.nodes]
-        tasks.append(asyncio.create_task(loop_lag()))
-        beat = time.time()
+    async def fetch(i: int, path: str, post=None):
+        node = nodes[i]
+        port = node["monitoring_port"] if path.startswith(("/metrics", "/debug")) else node["validator_api_port"]
+        url = f"http://{NODE_HOST}:{port}{path}"
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, (lambda: _get(url)) if post is None else (lambda: _post(url, post)))
+
+    def spawn(i: int):
+        argv = _arg(nodes[i]["argv"], "--genesis-time", genesis)
+        argv = [a for a in argv if a != "--no-tpu"] + list(NODE_REMOTE_FLAGS) + [
+            "--crypto-remote", f"{NODE_HOST}:{serve_port}", "--crypto-tenant", f"node{i}"]
+        env = {**os.environ, "CHARON_TPU_CRYPTO_TOKEN": tokens[f"node{i}"],
+               "PYTHONPATH": str(compose.REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        log_file = open(os.path.join(nodes[i]["data_dir"], "node.log"), "w")
+        proc = subprocess.Popen(argv, env=env, cwd=str(compose.REPO), stdout=log_file, stderr=subprocess.STDOUT)
+        log_file.close()
+        return proc
+
+    def node_log(i: int) -> str:
         try:
-            while not done():
-                if time.time() > beat + 10:
-                    beat = time.time()
-                    log(f"node: {beat - clock.slot_start(slot):.1f} s into slot {slot}: "
-                        f"{sum(1 for a in beacon.attestations if a.data.slot == slot)} attestations and "
-                        f"{sum(1 for p, _ in beacon.proposals if p.slot == slot)} blocks broadcast")
-                if time.time() > deadline:
-                    raise AssertionError(
-                        f"node: slot {slot}'s duties missed their deadline ({deadline - clock.slot_start(slot):.0f} s "
-                        f"after the slot start): {sum(1 for a in beacon.attestations if a.data.slot == slot)} "
-                        f"attestations and {sum(1 for p, _ in beacon.proposals if p.slot == slot)} blocks broadcast"
-                    )
-                await asyncio.sleep(0.05)
-            # the launches up to the last broadcast: the device thread goes on
-            # with the next slot's flushes, and waiting for the card to drain
-            # them (30-45 s) would time them too
-            run_launches = dict(MK.LAUNCHES)
-            # the remote clients as the duties completed (closing them below
-            # fails the jobs of later slots still in flight over to local)
-            remote_run.update({idx: {
-                "remote_jobs": rp.remote_jobs, "local_jobs": rp.local_jobs, "failovers": dict(rp.failovers),
-                "sheds": dict(rp.sheds), "disconnects": dict(rp.disconnects), "trips": list(rp.trips),
-            } for idx, rp in remotes.items()})
-            reports = {
-                (node.share_idx, d.type.name): await node.tracker.duty_expired(d)
-                for node in cluster.nodes
-                for d in (att_duty, Duty(slot, DutyType.RANDAO), prop_duty)
-            }
-        finally:
-            for node in cluster.nodes:
-                node.scheduler.stop()
-            for task in tasks:  # a stopped scheduler sleeps on until the next slot starts (up to 48 s)
-                task.cancel()
-            await asyncio.gather(*tasks, return_exceptions=True)
-        return run_launches, reports
+            return open(os.path.join(nodes[i]["data_dir"], "node.log")).read()[-3000:]
+        except OSError:
+            return ""
 
-    remote_run: dict = {}
+    async def wait_for(what: str, cond, until: float):
+        while not await cond():
+            for i, proc in remote.items():
+                if proc.poll() is not None:
+                    raise AssertionError(f"node {i} exited {proc.returncode}:\n{node_log(i)}")
+            if time.time() > until:
+                raise AssertionError(f"node: {what} not by {until - start:.1f} s into slot 0")
+            await asyncio.sleep(0.2)
 
-    async def shut_down():
-        for rp in remotes.values():
-            await rp.close()
-        await server.close()
+    async def diagnose():
+        """Each node's slot-0 waterfall, consensus sniffer, flight ring,
+        metrics and log under the cluster's diagnostics/, and a line a node
+        of what it did."""
+        out = os.path.join(work, "diagnostics")
+        os.makedirs(out, exist_ok=True)
+        for i in range(NODE_N):
+            for name, path in (("duty0.txt", "/debug/duty/0?format=text"), ("consensus.json", "/debug/consensus"),
+                               ("flight.txt", "/debug/flight?format=text"), ("metrics.txt", "/metrics")):
+                try:
+                    status, body = await fetch(i, path)
+                except OSError as e:
+                    status, body = 0, str(e).encode()
+                with open(os.path.join(out, f"node{i}-{name}"), "wb") as f:
+                    f.write(body)
+            text = open(os.path.join(out, f"node{i}-metrics.txt")).read()
+            log(f"node {i} at the deadline: broadcasts {json.dumps(_by(_samples(text, 'core_bcast_broadcast_total'), 'duty'))}"
+                f"; decided {json.dumps(_by(_samples(text, 'core_consensus_decided_total'), 'duty'))}; rounds "
+                f"{json.dumps(_by(_samples(text, 'core_consensus_decided_rounds'), 'duty'))}")
+        for i in range(1, NODE_N):
+            with open(os.path.join(out, f"node{i}.log"), "w") as f:
+                f.write(node_log(i))
+        log(f"node: diagnostics in {out}")
 
-    try:
+    async def drive(t_launch: float):
+        node0 = None
+
+        def task(name):
+            return next((t for t in node0.life._tasks if t.get_name() == name), None)
+
+        async def node0_ready():
+            nonlocal node0
+            node0 = built.get("node")
+            return node0 is not None and task("crypto-serve") is not None and task("crypto-serve").done()
+
+        await wait_for("node 0's crypto service", node0_ready, genesis)
+        if task("crypto-serve").exception() is not None:
+            raise AssertionError(f"node 0: its crypto service did not start: {task('crypto-serve').exception()!r}")
+        coal = node0.crypto_plane
+        inner = coal.stats_hook
+
+        def chained(st):
+            on_flush(st)
+            inner(st)
+
+        coal.stats_hook = chained
+        for i in range(1, NODE_N):
+            remote[i] = spawn(i)
+        log(f"node: node 0 serves the card's plane on {NODE_HOST}:{serve_port} "
+            f"({time.time() - t_launch:.1f} s after the launch); nodes 1-{NODE_N - 1} launched")
+        async def node0_booted():
+            return all(task(n) is not None and task(n).done() for n in ("crypto-prewarm", "crypto-cache-warmup"))
+
+        await wait_for("node 0's prewarm and warm-up", node0_booted, genesis)
+        for n in ("crypto-prewarm", "crypto-cache-warmup"):
+            if task(n).exception() is not None:
+                raise AssertionError(f"node 0: {n} failed: {task(n).exception()!r}")
+        boot[0] = time.time() - t_launch
+
+        # a client with a wrong token is refused at the handshake
+        server = node0.crypto_server
+        refused = server.auth_failures
+        bad = RemotePlane(NODE_HOST, serve_port, "node1", "not-the-token", local=node0.vapi.plane)
+        await bad.start()
+        t0 = time.time()
+        while server.auth_failures == refused and time.time() < t0 + 30:
+            await asyncio.sleep(0.01)
+        await bad.close()
+        if server.auth_failures == refused or bad.connects or bad.remote_jobs:
+            raise AssertionError(f"node: the wrong-token client was not refused ({server.auth_failures})")
+        log(f"node: a client with a wrong token refused at the handshake ({server.auth_failures} refusal(s))")
+
+        async def remote_ready(i):
+            async def ready():
+                try:
+                    status, body = await fetch(i, "/metrics")
+                except OSError:
+                    return False
+                return status == 200 and _metric(body.decode(), "tpu_plane_remote_state") >= 1
+
+            await wait_for(f"node {i}'s connection", ready, genesis)
+            boot[i] = time.time() - t_launch
+
+        await asyncio.gather(*(remote_ready(i) for i in range(1, NODE_N)))
+
+        async def probe(i):
+            """One verify over node i's RemotePlane, its probe: a partial
+            exit of validator 0 signed with another node's share, which
+            node i's validator API refuses after the verify."""
+            exit_msg = VoluntaryExit(epoch=0, validator_index=0)
+            fork = node0.lock.fork_info()
+            root = SignedData("exit", exit_msg).signing_root(fork, 0)
+            sig = host.sign(shares[(i + 1) % NODE_N][0], root)
+            status, body = await fetch(i, "/eth/v1/beacon/pool/voluntary_exits", post={
+                "message": {"epoch": "0", "validator_index": "0"}, "signature": "0x" + sig.hex()})
+            text = (await fetch(i, "/metrics"))[1].decode()
+            if status != 400 or b"verification" not in body or _metric(text, "tpu_plane_remote_state") != 2:
+                raise AssertionError(f"node {i}: the probe did not settle remote: {status} {body[:200]}")
+
         t0 = time.perf_counter()
-        launches, reports = runner.run(drive())
-        log(f"node: slot {slot}'s attester and proposer duties broadcast by all {NODE_N} nodes; "
-            f"run {time.perf_counter() - t0:.1f} s")
+        await asyncio.gather(*(probe(i) for i in range(1, NODE_N)))
+        log(f"node: boot, s from the launch to ready: " + json.dumps({f"node{i}": round(s, 1) for i, s in
+            sorted(boot.items())}) + f"; remote nodes probed in {time.perf_counter() - t0:.2f} s; genesis in "
+            f"{genesis - time.time():.1f} s")
+        log(f"node: the card's processes (pid, memory): {_compute_apps()}")
+        if time.time() > genesis:
+            raise AssertionError(f"node: the cluster was ready {time.time() - genesis:.1f} s after genesis")
+        # from here on, the slot's work
+        MK.reset_launches()
+        inline.clear()
+        flushes.clear()
+        lag_task = asyncio.create_task(loop_lag())
+        beacon = node0.beacon
+
+        async def done():
+            atts = sum(1 for a in beacon.attestations if a.data.slot == slot)
+            props = sum(1 for p, _ in beacon.proposals if p.slot == slot)
+            if atts < NODE_VALIDATORS or props < 1:
+                return False
+            for i in range(1, NODE_N):
+                text = (await fetch(i, "/metrics"))[1].decode()
+                if any(_metric(text, "core_bcast_broadcast_total", duty=d) < 1 for d in NODE_DUTIES):
+                    return False
+            return True
+
+        beat = time.time()
+
+        async def broadcasts() -> dict:
+            out = {}
+            for i in range(NODE_N):
+                text = (await fetch(i, "/metrics"))[1].decode()
+                out[i] = [int(_metric(text, "core_bcast_broadcast_total", duty=d)) for d in NODE_DUTIES]
+            return out
+
+        async def progress():
+            nonlocal beat
+            if time.time() > beat + 15:
+                beat = time.time()
+                log(f"node: {beat - start:.1f} s into slot 0: node 0 broadcast "
+                    f"{sum(1 for a in beacon.attestations if a.data.slot == slot)} attestations and "
+                    f"{sum(1 for p, _ in beacon.proposals if p.slot == slot)} blocks; broadcasts "
+                    f"{list(NODE_DUTIES)} a node: {json.dumps(await broadcasts())}")
+            return await done()
+
+        try:
+            await wait_for("slot 0's broadcasts on every node", progress, deadline)
+        except AssertionError:
+            await diagnose()
+            raise
+        finally:
+            lag_task.cancel()
+        result["launches"] = dict(MK.LAUNCHES)
+        result["inline"] = dict(inline)
+        result["reports"] = {d.type.name: await node0.tracker.duty_expired(d) for d in (
+            Duty(slot, DutyType.ATTESTER), Duty(slot, DutyType.RANDAO), Duty(slot, DutyType.PROPOSER))}
+        result["tenants"] = {tid: (node0.crypto_svc.tenant(tid).admitted_jobs,
+                                   node0.crypto_svc.tenant(tid).completed_lanes,
+                                   node0.crypto_svc.tenant(tid).shed)
+                             for tid in ["node0"] + sorted(tokens)}
+        result["node0_metrics"] = (await fetch(0, "/metrics"))[1].decode()
+        for i in range(NODE_N):
+            scraped[i] = ((await fetch(i, "/metrics"))[1].decode(), json.loads((await fetch(i, "/debug/traces"))[1]))
+        result["beacon"] = beacon
+        result["server_jobs"] = server.served_jobs
+        log(f"node: the card's processes at the last broadcast (pid, memory): {_compute_apps()}")
+
+    async def main():
+        t_launch = time.time()
+        runner = asyncio.create_task(app_run.run(config, stop))
+        checks = asyncio.create_task(drive(t_launch))
+        try:
+            done, _ = await asyncio.wait({runner, checks}, return_when=asyncio.FIRST_COMPLETED)
+            if runner in done:
+                runner.result()  # a failed boot hook raises here
+                raise AssertionError("node 0 stopped before the slot's duties")
+            checks.result()
+        finally:
+            for i, proc in remote.items():  # SIGTERM: each dumps its flight ring
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            stop.set()
+            if not checks.done():
+                checks.cancel()
+            await asyncio.gather(runner, checks, return_exceptions=True)
+            for i, proc in remote.items():
+                try:
+                    proc.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(main())
     finally:
-        runner.run(shut_down())
-        runner.close()
-        svc.close()
-        coal.close()
-        tbls.set_implementation(None)
+        app_run.build_node = build_node
+        for name, fn in originals.items():
+            setattr(TorchImpl, name, fn)
+        SlotCryptoPlane.PREWARM_VERIFY_LANES, SlotCryptoPlane.PREWARM_RECOMBINE_LANES = prewarm
+    log(f"node: slot 0's duties broadcast by all {NODE_N} nodes; the phase's run {time.perf_counter() - t0:.1f} s")
 
-    # the broadcasts: one signature per duty across the nodes, the host's
-    def group_secret(pk) -> bytes:
-        shares = {i: sk_to_int(cluster.share_keys[i - 1][pk]) for i in range(1, NODE_T + 1)}
-        return int_to_sk(shamir.recover_secret(shares))
-
-    host = PythonImpl()
+    # node 0's broadcasts: the host signature of the group secret
+    beacon = result["beacon"]
+    fork = built["node"].lock.fork_info()
     epoch = slot // NODE_SLOTS_PER_EPOCH
-    atts = [a for a in beacon.attestations if a.data.slot == slot]
-    by_index: dict[int, set] = {}
-    for a in atts:
-        by_index.setdefault(a.data.index, set()).add((a.data.hash_tree_root(), a.signature))
-    if len(by_index) != NODE_VALIDATORS or any(len(v) != 1 for v in by_index.values()):
-        raise AssertionError("node: the nodes' attestations differ")
     committee = sorted(beacon.validators.items())  # committee index i: the i-th validator by pubkey
-    for index, ((_, sig),) in by_index.items():
-        pk = committee[index][0]
-        att = next(a for a in atts if a.data.index == index)
-        root = SignedData("attestation", att).signing_root(fork, epoch)
-        if sig != host.sign(group_secret(pk), root):
-            raise AssertionError(f"node: validator {index}'s attestation is not the group secret's signature")
-    props = [(p, sig) for p, sig in beacon.proposals if p.slot == slot]
-    if len({(p.hash_tree_root(), sig) for p, sig in props}) != 1:
-        raise AssertionError("node: the nodes' blocks differ")
-    proposal, psig = props[0]
+    index_of = {bytes(pk) if isinstance(pk, bytes) else bytes.fromhex(str(pk)[2:]): v for v, pk in
+                enumerate(group_pks)}
+    atts = [a for a in beacon.attestations if a.data.slot == slot]
+    if len({a.data.index for a in atts}) != NODE_VALIDATORS:
+        raise AssertionError(f"node 0: {len(atts)} attestations for {len({a.data.index for a in atts})} validators")
+
+    def secret_of(pk) -> bytes:
+        key = bytes.fromhex(str(pk)[2:]) if not isinstance(pk, (bytes, bytearray)) else bytes(pk)
+        return group_secret(index_of[key])
+
+    for att in atts:
+        pk = committee[att.data.index][0]
+        if att.signature != host.sign(secret_of(pk), SignedData("attestation", att).signing_root(fork, epoch)):
+            raise AssertionError(f"node 0: validator {att.data.index}'s attestation is not the group secret's")
+    proposal, psig = next((p, s) for p, s in beacon.proposals if p.slot == slot)
     proposer = committee[slot % NODE_VALIDATORS][0]
-    if psig != host.sign(group_secret(proposer), SignedData("block", proposal).signing_root(fork, epoch)):
-        raise AssertionError("node: the block's signature is not the group secret's")
-    randao = host.sign(group_secret(proposer), SignedData("randao", epoch).signing_root(fork, epoch))
-    if proposal.block.body.randao_reveal != randao:
-        raise AssertionError("node: the block's randao reveal is not the group secret's")
-    missed = {k: (r.failed_step, r.reason, len(r.failed_pubkeys)) for k, r in reports.items()
+    if psig != host.sign(secret_of(proposer), SignedData("block", proposal).signing_root(fork, epoch)):
+        raise AssertionError("node 0: the block's signature is not the group secret's")
+    if proposal.block.body.randao_reveal != host.sign(secret_of(proposer), SignedData("randao", epoch).signing_root(
+            fork, epoch)):
+        raise AssertionError("node 0: the block's randao reveal is not the group secret's")
+    missed = {k: (r.failed_step, r.reason, len(r.failed_pubkeys)) for k, r in result["reports"].items()
               if not r.success or r.failed_pubkeys}
     if missed:
-        raise AssertionError(f"node: the trackers report missed duties {missed}")
-    if any(impl.inline.values()):
-        raise AssertionError(f"node: inline tbls calls ran: {impl.inline}")
-    tenants = [f"node{i}" for i in range(1, NODE_N + 1)] + sorted(tokens)
-    shed = {tid: svc.tenant(tid).shed for tid in tenants}
-    if any(shed.values()):
-        raise AssertionError(f"node: the service shed submissions: {shed}")
-    _check_launches(launches, "node", DEFAULT_KERNELS, INT8_KERNELS)
-    # the remote nodes: every job over the wire, their lanes in the card's flushes
-    log(f"node: event loop stalls over 0.25 s (s late, s into slot 0), the worst first: "
-        f"{sorted(lags, reverse=True)[:12]}; {sum(1 for x, _ in lags if x > 1)} over 1 s, "
-        f"{sum(1 for x, _ in lags if x > 2)} over 2 s; remote client events (node, kind, s into slot 0): {events}")
-    flushed: dict[str, int] = {}
-    for st in stats:
-        for tid, lanes in st.tenant_lanes:
-            flushed[tid] = flushed.get(tid, 0) + lanes
-    for idx, run in sorted(remote_run.items()):
-        tid = remotes[idx].tenant_id
-        faults = {k: run[k] for k in ("failovers", "sheds", "disconnects")}
-        if run["remote_jobs"] <= 1 or run["local_jobs"] or any(faults.values()):
-            raise AssertionError(f"node {idx}: {run['remote_jobs']} remote jobs (1 the probe), {run['local_jobs']} "
-                                 f"local, {faults}")
-        if not flushed.get(tid) or not svc.tenant(tid).completed_lanes:
-            raise AssertionError(f"node {idx}: tenant {tid} has no lanes in the card's flushes: {flushed}")
-        wired = [(kind, lanes, rt, b["flush_seconds"]) for kind, lanes, rt, b in run["trips"] if b is not None]
-        log(f"node {idx} remote: {run['remote_jobs'] - 1} jobs after the probe, tenant {tid} "
-            f"{svc.tenant(tid).admitted_jobs} jobs and {svc.tenant(tid).completed_lanes} lanes in all, {flushed[tid]} "
-            "lanes in this run's flushes; round trip vs the server's flush wall, s (kind, lanes, round trip, flush, "
-            "difference): " + json.dumps([(k, n, round(rt, 3), round(f, 3), round(rt - f, 3)) for k, n, rt, f in wired])
-            + f"; {len(run['trips']) - len(wired)} results without a brief")
+        raise AssertionError(f"node 0: its tracker reports missed duties {missed}")
+    if any(result["inline"].values()):
+        raise AssertionError(f"node 0: inline tbls calls ran: {result['inline']}")
+    shed = {tid: s for tid, (_, _, s) in result["tenants"].items() if s}
+    if shed:
+        raise AssertionError(f"node 0: the service shed submissions: {shed}")
+    launches = result["launches"]
+    _check_launches(launches, "node", launched, idle)
+    log(f"node 0: its tuner profile chose mxu_mont={int8}, so {'K4-K6' if int8 else 'K1-K3'} ran and "
+        f"{'K1-K3' if int8 else 'K4-K6'} did not")
 
-    # slot start to broadcast, per duty and node
-    start = clock.slot_start(slot)
-    lat: dict[tuple, list] = {}
-    for node in cluster.nodes:
-        where = "remote" if node.share_idx in NODE_REMOTE else "in-process"
-        for duty in (att_duty, prop_duty):
-            delays = [d for dd, d in node.bcast.broadcast_delay if dd == duty]
-            lat.setdefault((duty.type.name.lower(), "all"), []).append(max(delays))
-            lat.setdefault((duty.type.name.lower(), where), []).append(max(delays))
-    for (name, where), xs in lat.items():
-        log(f"node {name}: slot start to broadcast over {len(xs)} nodes ({where}): min {min(xs):.3f} s, median "
+    # every node: slot 0's duties broadcast, from its traces and metrics
+    lat: dict = {}
+    for i in range(NODE_N):
+        text, spans = scraped[i]
+        where = "node 0" if i == 0 else "remote"
+        for duty in NODE_DUTIES:
+            ends = [(s["start_us"] + s["duration_us"]) / 1e6 - start for s in spans
+                    if s["name"] == "broadcaster.broadcast" and s["attrs"].get("slot") == slot
+                    and s["attrs"].get("duty_type", "").lower().endswith(duty)]
+            width = sum(s["attrs"].get("pubkeys", 0) for s in spans if s["name"] == "broadcaster.broadcast"
+                        and s["attrs"].get("slot") == slot and s["attrs"].get("duty_type", "").lower().endswith(duty))
+            if not ends or (duty == "attester" and width != NODE_VALIDATORS):
+                raise AssertionError(f"node {i}: slot 0's {duty} duty not broadcast ({width} validators)")
+            if max(ends) > deadline - start:
+                raise AssertionError(f"node {i}: slot 0's {duty} duty broadcast after its deadline")
+            lat.setdefault((duty, "all"), []).append(max(ends))
+            lat.setdefault((duty, where), []).append(max(ends))
+        for fam in ("tpu_plane_tenant_shed_total", "tpu_plane_remote_shed_total",
+                    "tpu_plane_remote_failovers_total", "tpu_plane_remote_disconnects_total",
+                    "core_tracker_failed_duties_total"):
+            if _metric(text, fam):
+                raise AssertionError(f"node {i}: {fam} {_samples(text, fam)}")
+        if i:
+            # no failover: every job went over the wire, so the node's own
+            # coalescer took none; its plane ran no program (planeprof
+            # files the remote flush briefs, which carry no program
+            # samples, under the fallback family "device")
+            own = {k: v for k, v in _samples(text, "tpu_plane_kernel_seconds_total").items()
+                   if 'family="device"' not in k}
+            if own or _metric(text, "tpu_plane_remote_connects_total") < 1:
+                raise AssertionError(f"node {i}: programs on its own plane {own}, "
+                                     f"{_metric(text, 'tpu_plane_remote_connects_total')} connects")
+        rounds = _by(_samples(text, "core_consensus_decided_rounds"), "duty")
+        log(f"node {i}: QBFT decided round, the last instance of each duty type: {json.dumps(rounds)}")
+        if i:
+            # a partial set's verify and a recombine, each a round trip over
+            # the node's RemotePlane, beside the server's flush brief
+            steps = {}
+            for step in ("parsigex.receive", "sigagg.aggregate", "cryptoplane.flush"):
+                n = _metric(text, "core_step_latency_seconds_count", step=step)
+                steps[step] = [int(n), round(_metric(text, "core_step_latency_seconds_sum", step=step) / n, 3)
+                               if n else None]
+            log(f"node {i} remote: (count, mean s) a step: {json.dumps(steps)}")
+    for (duty, where), xs in sorted(lat.items()):
+        log(f"node {duty}: slot start to broadcast over {len(xs)} nodes ({where}): min {min(xs):.3f} s, median "
             f"{statistics.median(xs):.3f} s, max {max(xs):.3f} s (limit {NODE_LIMIT} s; slot {slot_duration} s, "
             f"deadline {deadline - start:.0f} s)")
-    log(f"node: {len(stats)} flushes ({coal.flushes} in all, {coal.held_flushes} held for a busy lane), "
-        f"{coal.lanes_flushed} lanes, failed {coal.failed_flushes}; "
-        "programs " + "; ".join(f"{fam} x{len(r)} {sum(s for s, _ in r):.3f} s over {sum(n for _, n in r)} lanes"
-                                for fam, r in sorted(walls.items())))
-    log("node: tenants' lanes", json.dumps({
-        tid: [svc.tenant(tid).admitted_jobs, svc.tenant(tid).completed_lanes] for tid in tenants
-    }), f"(jobs, lanes; the server served {server.served_jobs} jobs)")
-    log("node launches:", json.dumps(launches))
+
+    # the flight dumps of every node, merged by the CLI
+    dumps = [os.path.join(nodes[0]["data_dir"], "flightrec", "node0.stop.jsonl")] + [
+        os.path.join(nodes[i]["data_dir"], "flightrec", f"node{i}.crash.jsonl") for i in range(1, NODE_N)]
+    missing = [d for d in dumps if not os.path.exists(d)]
+    if missing:
+        raise AssertionError(f"node: no flight dump at {missing}")
+    merged = os.path.join(work, "flight-merged.jsonl")
+    if cli.main(["flight", "merge", *dumps, "--format", "jsonl", "--output", merged]) != 0:
+        raise AssertionError("node: `cli flight merge` failed")
+    events = [json.loads(line) for line in open(merged)]
+    timeline = os.path.join(work, "flight-timeline.txt")
+    cli.main(["flight", "merge", *dumps, "--output", timeline])
+    by_node: dict = {}
+    for e in events:
+        by_node.setdefault(e.get("node"), []).append(e)
+    for i in range(NODE_N):
+        mine = by_node.get(f"node{i}", [])
+        flushes_i = [e for e in mine if e.get("category") == "flush"]
+        faults = [e for e in mine if e.get("category") == "remote" and e.get("kind") in
+                  ("failover", "shed", "remote_shed", "disconnect")]
+        if i == 0:
+            oks = [e for e in mine if e.get("kind") == "duty_ok" and e.get("slot") == slot]
+            if len(oks) < len(NODE_DUTIES):
+                raise AssertionError(f"node 0: its flight ring holds {len(oks)} duty outcomes of slot 0")
+        elif not flushes_i or faults:
+            # each remote result's flush brief lands in the ring as a flush
+            raise AssertionError(f"node {i}: {len(flushes_i)} flush briefs in its flight ring, faults {faults[:3]}")
+        log(f"node {i}: flight ring {len(mine)} events ({len(flushes_i)} flushes)")
+    log(f"node: `cli flight merge` of {len(dumps)} dumps: {len(events)} events, {sum(1 for _ in open(timeline))} "
+        f"timeline lines ({timeline})")
+
+    # the remote tenants' lanes in node 0's flushes, and node 0's profile
+    flushed: dict = {}
+    for st in flushes:
+        for tid, lanes in st.tenant_lanes:
+            flushed[tid] = flushed.get(tid, 0) + lanes
+    for tid in sorted(tokens):
+        if not flushed.get(tid):
+            raise AssertionError(f"node: tenant {tid} has no lanes in node 0's flushes: {flushed}")
+    text0 = result["node0_metrics"]
+    log("node: tenants (jobs, lanes, shed) at node 0's service: " + json.dumps(result["tenants"])
+        + f"; the server served {result['server_jobs']} remote jobs; lanes in this run's flushes {json.dumps(flushed)}")
+    log("node: a remote tenant's job at node 0's service (admission to result), s: " + json.dumps({
+        tid: [round(_metric(text0, "tpu_plane_tenant_submit_seconds_count", tenant=tid)),
+              round(_metric(text0, "tpu_plane_tenant_submit_seconds_sum", tenant=tid), 3)]
+        for tid in sorted(tokens)}) + " (count, sum)")
+    log("node 0 planeprof: device seconds by family " + json.dumps(
+        {k: round(v, 3) for k, v in _by(_samples(text0, "tpu_plane_kernel_seconds_total"), "family").items()})
+        + f"; device utilization {_metric(text0, 'tpu_plane_device_utilization'):.3f}")
+    log(f"node 0: event loop stalls over 0.25 s (s late, s into slot 0), the worst first: "
+        f"{sorted(lags, reverse=True)[:12]}; {sum(1 for x, _ in lags if x > 1)} over 1 s, "
+        f"{sum(1 for x, _ in lags if x > 2)} over 2 s")
+    log(f"node 0: {len(flushes)} flushes in the run; launches {json.dumps(launches)}")
     MK.reset_launches()
     return {name: launches[name] for name in KERNELS}
 
@@ -1946,18 +2218,20 @@ def run_node(seed: int, slot_duration: float) -> dict:
 NODE_LAUNCHES = "node_launches"  # the key of the sweep's launch line
 
 
-def node_sweep(seed: int, slots: list) -> int:
+def node_sweep(seed: int, slots: list, cluster_dir: str | None = None) -> int:
     """The node phase alone at each slot duration in turn; a missed
     deadline is logged and the next duration runs. Each pass prints its
-    launches as one JSON line. 0 if any passed."""
+    launches as one JSON line. 0 if any passed. Without phase 4's profile
+    (a sweep alone), the tuner runs here first, as phase 4 does."""
+    if not node_profile_path().exists():
+        run_tuner(1024 * NODE_T, persist=True)  # as phase 4: the 1k-validator duty's partials
     passed = []
     for slot in slots:
         t0 = time.perf_counter()
         try:
-            launches = run_node(seed, slot)
+            launches = run_node(seed, slot, cluster_dir if len(slots) == 1 else None)
         except AssertionError as e:
             log(f"node sweep: slot {slot} s FAILED in {time.perf_counter() - t0:.1f} s: {e}")
-            time.sleep(30)  # the failed run's last flush leaves the device lane
             continue
         passed.append(slot)
         print(json.dumps({NODE_LAUNCHES: launches}), flush=True)
@@ -1966,13 +2240,15 @@ def node_sweep(seed: int, slots: list) -> int:
     return 0 if passed else 1
 
 
-def run_node_process(seed: int, slot: float) -> dict:
+def run_node_process(seed: int, slot: float, cluster_dir: str | None = None) -> dict:
     """Phase 10 in a process of its own (`--node-sweep <slot>`), as a node
     boots: a fresh process, with none of the earlier phases' state (run
     in this process after them, its flushes ran slower than in a fresh
     one and slot 0 missed its deadline; PERF.md section 6). Its output is
     passed through; returns the launches it reports."""
     cmd = [sys.executable, os.path.abspath(__file__), "--node-sweep", str(slot), "--seed", str(seed)]
+    if cluster_dir:
+        cmd += ["--node-cluster", cluster_dir]
     launches = None
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
         for line in proc.stdout:
@@ -2002,6 +2278,15 @@ def main(argv=None) -> int:
              "pass or missed deadline; prints no result line",
     )
     ap.add_argument(
+        "--node-cluster", default=None, metavar="DIR",
+        help="the node phase's cluster on disk (compose.json and the node directories), written beforehand by "
+             "--make-node-cluster; without it the node phase writes its own",
+    )
+    ap.add_argument(
+        "--make-node-cluster", default=None, metavar="DIR",
+        help="write the node phase's cluster (testutil/compose.generate) into DIR and exit; prints no result line",
+    )
+    ap.add_argument(
         "--ceremony", action="store_true",
         help="build the kernels and run only phase 9's cluster ceremony (dkg/ceremony.run_dkg on the card); "
              "prints no result line",
@@ -2015,6 +2300,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if args.make_node_cluster:
+        make_node_cluster(args.make_node_cluster, args.node_slot)
+        return 0
     from charon_tpu_torch.core.autotune import KernelConfig
     from charon_tpu_torch.ops import mont_kernels as MK
 
@@ -2033,7 +2321,7 @@ def main(argv=None) -> int:
                 log("  " + line.strip())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     if args.node_sweep:
-        rc = node_sweep(args.seed, args.node_sweep)
+        rc = node_sweep(args.seed, args.node_sweep, args.node_cluster)
         # exit now: the coalescer's device thread may still run the next
         # slot's flush (20 s on the card), whose jobs nobody awaits any more
         sys.stdout.flush()
@@ -2050,27 +2338,48 @@ def main(argv=None) -> int:
 
     results = check_kernels(args.seed)
     vals = host_setup(args.validators, args.seed, args.workers)
-    run_tuner(sum(len(v[3]) for v in vals))
-
-    batteries = decode_batteries(args.seed)
-    KernelConfig(mxu_mont=True).apply()
-    from charon_tpu_torch.ops.blsops import BlsEngine
-
-    engine = BlsEngine()
-    run_decode_batteries(engine, batteries, "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
-    _, int8_launches, int8_rows, impl, batch, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
-    profile_device(impl, batch, "int8")
-    if args.python_decode:
-        run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
-    KernelConfig().apply()
-    run_decode_batteries(engine, batteries, "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
-    _, default_launches, default_rows, _, _, duty_sigs = run_duty(
-        vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
+    run_tuner(sum(len(v[3]) for v in vals), persist=True)
+    # the node phase's cluster: create-cluster's host ceremony (FROST on the
+    # host, about a minute) runs in a process of its own from here on,
+    # beside phases 5-9, after the tuner whose profile node 0 loads
+    cluster_dir = str(MK.BUILD_DIR / f"node-cluster-{os.getpid()}")
+    os.makedirs(cluster_dir)
+    cluster_log = open(os.path.join(cluster_dir, "make.log"), "w")
+    cluster_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--make-node-cluster", cluster_dir,
+         "--node-slot", str(args.node_slot)], stdout=cluster_log, stderr=subprocess.STDOUT,
     )
-    profile_device(impl, batch, "default")
-    plane_launches = run_plane(vals, duty_sigs, args.seed)
-    dkg_launches = run_dkg(args.seed)
-    node_launches = run_node_process(args.seed, args.node_slot)
+    cluster_log.close()
+
+    try:
+        batteries = decode_batteries(args.seed)
+        KernelConfig(mxu_mont=True).apply()
+        from charon_tpu_torch.ops.blsops import BlsEngine
+
+        engine = BlsEngine()
+        run_decode_batteries(engine, batteries, "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
+        _, int8_launches, int8_rows, impl, batch, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
+        profile_device(impl, batch, "int8")
+        if args.python_decode:
+            run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
+        KernelConfig().apply()
+        run_decode_batteries(engine, batteries, "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
+        _, default_launches, default_rows, _, _, duty_sigs = run_duty(
+            vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
+        )
+        profile_device(impl, batch, "default")
+        plane_launches = run_plane(vals, duty_sigs, args.seed)
+        dkg_launches = run_dkg(args.seed)
+        if cluster_proc.wait() != 0:
+            raise AssertionError(f"the node cluster: create-cluster exited {cluster_proc.returncode}:\n"
+                                 + open(os.path.join(cluster_dir, "make.log")).read()[-3000:])
+        for line in open(os.path.join(cluster_dir, "make.log")):
+            print("  " + line, end="")
+        node_launches = run_node_process(args.seed, args.node_slot, cluster_dir)
+    finally:
+        if cluster_proc.poll() is None:
+            cluster_proc.kill()
+            cluster_proc.wait()
     duty_rows = {name: (int8_rows if name in INT8_KERNELS else default_rows)[name] for name in KERNELS}
     time_duty_shapes(results, duty_rows, args.seed)
 

@@ -5,8 +5,8 @@ key hand-off (dkg/reshare.write_reshare_outputs), held against the JAX
 package.
 
   * The JAX package's tests/test_cluster_dkg.py cases run on the port's
-    modules (`reference_cases`), but `test_cli_reshare_roundtrip`, which
-    needs cmd/cli.py (ROADMAP item 13g); and
+    modules (`reference_cases`), but `test_cli_reshare_roundtrip`, bound
+    with the CLI's cases in tests/test_torch_node_app.py; and
     test_dkg_reshare.py::test_write_reshare_outputs_atomic_swap.
   * Cross-checks: a lock made by the port's run_dkg (3 nodes, t = 2, 2
     validators, the port's PythonImpl in the registry, no engine) loads

@@ -8,16 +8,17 @@ signed QBFT of core/consensus_qbft.py), held against the JAX package.
     test_eth2util_ext.py; test_golden.py but `test_wire_envelope_golden`
     (bound in tests/test_torch_wire.py), against the same committed golden
     files; test_app_infra.py's lifecycle and fork-join cases (its other
-    cases need app/health.py and app/metrics.py, item 13e); and the whole
-    of test_security.py, whose signed-QBFT cases run over the port's k1util.
+    cases are bound in tests/test_torch_obs.py); the whole of
+    test_security.py, whose signed-QBFT cases run over the port's k1util;
+    and the whole of test_manifest.py, whose clusters the port's
+    `create-cluster` writes (cmd/cli.py).
   * Parity: for the same operators and settings both packages give equal
     config and definition hashes, lock hashes, EIP-712 digests, ENR
     records and deposit-data JSON; a definition, a lock or an ENR signed by
     one package verifies in the other; each package's keystore decrypts the
     other's, and with the same salt, IV and uuid the JSON is byte-equal; a
     k1 signature made by either verifies under the other, and ECDH agrees.
-  * Manifests: test_manifest.py imports cmd/cli.py (item 13g), so its
-    mutation cases are held here by direct parity: the same chain of
+  * Manifests: besides the rebound cases, direct parity: the same chain of
     mutations gives equal heads and materialised lock hashes in both
     packages, each loads the other's manifest file, and both refuse a
     non-operator approval and a broken chain with the same error.
@@ -59,11 +60,13 @@ from charon_tpu_torch.tbls.python_impl import PythonImpl
 ETH2UTIL_CASES = export_cases(reference_cases("test_eth2util_ext"), globals())
 GOLDEN_CASES = export_cases(reference_cases("test_golden"), globals(), skip=("test_wire_envelope_golden",))
 APP_INFRA_CASES = export_cases(
-    reference_cases("test_app_infra", drop_imports=("charon_tpu_torch.app.health", "charon_tpu_torch.app.metrics")),
+    reference_cases("test_app_infra"),
     globals(),
     only=("test_lifecycle_order_and_shutdown", "test_forkjoin_bounded_order_and_failures"),
 )
 SECURITY_CASES = export_cases(reference_cases("test_security"), globals())
+# its host_tbls is this file's own, below
+MANIFEST_CASES = export_cases(reference_cases("test_manifest"), globals(), skip=("host_tbls",))
 
 
 @pytest.fixture(autouse=True)
@@ -76,8 +79,10 @@ def host_tbls():
 def test_reference_cases_run_on_the_port():
     """Every rebound case runs on the port's modules and none of the
     reference's."""
-    assert (len(ETH2UTIL_CASES), len(GOLDEN_CASES), len(APP_INFRA_CASES), len(SECURITY_CASES)) == (15, 4, 2, 12)
-    for name in ETH2UTIL_CASES + GOLDEN_CASES + APP_INFRA_CASES + SECURITY_CASES:
+    assert (len(ETH2UTIL_CASES), len(GOLDEN_CASES), len(APP_INFRA_CASES), len(SECURITY_CASES), len(MANIFEST_CASES)) == (
+        15, 4, 2, 12, 7
+    )
+    for name in ETH2UTIL_CASES + GOLDEN_CASES + APP_INFRA_CASES + SECURITY_CASES + MANIFEST_CASES:
         assert not reference_modules(globals()[name]), name
 
 

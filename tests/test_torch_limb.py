@@ -59,6 +59,7 @@ def test_port_imports_without_jax_or_reference_package():
     """Every module of the port, chip_smoke and kernel_ab import with jax
     and charon_tpu made unimportable."""
     mods = _port_modules() + ["charon_tpu_torch", "chip_smoke", "kernel_ab"]
+    assert {"charon_tpu_torch.cmd.cli", "charon_tpu_torch.app.run"} <= set(mods)  # the node binary
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -7,11 +7,10 @@ port's modules: `reference_cases` loads a reference test file with every
 import of `charon_tpu` rebound to `charon_tpu_torch`, the host tbls
 backends and the golden-file helper included (the tests install the
 port's PythonImpl into the port's tbls registry, as the reference
-simnet's own fixture does with the reference's). Left out, because they
-need modules the port does not have yet: test_qbft's consensus-sniffer
-case (app/metrics.py, ROADMAP item 13e), and test_spec_blocks' HTTP-router
-case (core/vapi_http.py, 13g); its wire-codec case is bound in
-tests/test_torch_wire.py.
+simnet's own fixture does with the reference's). Bound in other files:
+test_qbft's consensus-sniffer case (tests/test_torch_obs.py), test_spec_blocks'
+HTTP-router case (tests/test_torch_node_app.py) and its wire-codec case
+(tests/test_torch_wire.py).
 
 Parity: the same seeded containers (attestation data, attestations,
 deneb blocks, builder registrations, sync messages, exits, aggregates)
@@ -43,15 +42,24 @@ _TESTS = pathlib.Path(__file__).parent
 _REFERENCE_ONLY = ()
 
 
-def reference_cases(name: str, drop_imports: tuple[str, ...] = ()) -> types.ModuleType:
+def reference_cases(
+    name: str, drop_imports: tuple[str, ...] = (), test_modules: tuple[str, ...] = ()
+) -> types.ModuleType:
     """The JAX package's tests/{name}.py, executed with every import of
     `charon_tpu` rebound to `charon_tpu_torch`.
     `drop_imports` names port modules the port does not have yet: their
     module-level `from ... import` lines become blank, and the cases that
-    use them must stay out of `export_cases`. The module keeps the
-    reference file's path, so tracebacks and golden files resolve there."""
+    use them must stay out of `export_cases`. `test_modules` names other
+    reference test modules it imports from: each import is rebound to
+    that module's rebound copy, `port_<name>`, made first. The module
+    keeps the reference file's path, so tracebacks and golden files
+    resolve there."""
     path = _TESTS / f"{name}.py"
     src = re.sub(r"\bcharon_tpu\b", "charon_tpu_torch", path.read_text())
+    for mod in test_modules:
+        if f"port_{mod}" not in sys.modules:
+            reference_cases(mod)
+        src = re.sub(rf"(?m)^from {mod} import ", f"from port_{mod} import ", src)
     for mod in drop_imports:
         src, dropped = re.subn(rf"(?m)^from {re.escape(mod)} import [^\n(]*$", "", src)
         if dropped != 1:
@@ -248,3 +256,47 @@ def test_registry_delegates_to_the_installed_backend():
     port_tbls.verify(pk, root, group)
     assert port_tbls.verify_batch([(pk, root, group), (pk, b"\x08" * 32, group)]) == [True, False]
     assert port_tbls.recover_secret({i: shares[i] for i in (1, 2, 3)}, 4, 3) == sk
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_qbft_round_change_survives_a_suspending_broadcast(pkg):
+    """A round change must reach the peers when the broadcast suspends, as a
+    TCP send does (the in-memory fabric never suspends). The engine's
+    timer task restarts the timer when it fires, and the reference's
+    restart cancels that very task, so its round change is cancelled at
+    the broadcast's first suspension and an instance whose round-1 leader
+    is absent never decides. The port's restart spares the running timer
+    task: 3 of 4 nodes decide in round 2 (ROADMAP section 3)."""
+    if pkg == "port":
+        from charon_tpu_torch.core import qbft
+    else:
+        from charon_tpu.core import qbft
+
+    n, live = 4, (1, 2, 3)  # node 0, round 1's leader, never runs
+    transports: list = []
+
+    def make_bcast(i):
+        async def bcast(msg):
+            await asyncio.sleep(0.001)  # a socket write's suspension
+            for j in live:
+                if j != i:
+                    transports[j].receive(msg)
+
+        return bcast
+
+    transports.extend(qbft.Transport(make_bcast(i)) for i in range(n))
+    defn = qbft.Definition(nodes=n, leader=lambda inst, rnd: (rnd - 1) % n, timeout=lambda rnd: 0.1 * rnd)
+
+    async def main():
+        runs = [asyncio.create_task(qbft.run(defn, transports[i], "d", i, f"v{i}")) for i in live]
+        done, pending = await asyncio.wait(runs, timeout=3.0)
+        for task in pending:
+            task.cancel()
+        await asyncio.gather(*pending, return_exceptions=True)
+        return [t.result() for t in done]
+
+    decided = asyncio.run(main())
+    if pkg == "port":
+        assert decided == ["v1"] * 3
+    else:
+        assert decided == []

@@ -13,9 +13,9 @@ and the node's duty workflow end to end, held against the JAX package.
     crypto/shamir): every node's SigAgg, ValidatorAPI and Eth2Verifier
     holds its TenantPlane, the duties complete with no inline tbls call,
     and the service's flushes carry every node's lanes.
-  * The registry: unported build_cluster options raise
-    NotImplementedError (protocol_prefs, ported, builds), and
-    get_implementation() raises without a card.
+  * The registry: the unported build_cluster option (chaos) raises
+    NotImplementedError (protocol_prefs and flightrec, ported, build),
+    and get_implementation() raises without a card.
     Clusters here run on the port's host backends (NativeImpl where
     native/libcharon_native.so loads, else PythonImpl).
   * Signed QBFT: a cluster whose messages are k1-signed over the port's
@@ -251,33 +251,50 @@ def test_cluster_on_a_crypto_service_runs_every_node_as_a_tenant():
 
 
 def test_mem_transport_delivers_to_every_peer_at_once():
-    """A partial-signature set reaches every peer concurrently, as the
-    p2p broadcast sends it: no receiver's verification delays the next
-    peer's delivery, and a failing receiver skips nobody."""
+    """The port's MemTransport.send is the reference's again: given the
+    same peers and the same set, both deliver it to every peer but the
+    sender, one peer at a time in attach order (each delivery awaited
+    before the next starts), with the sender's index and the same set
+    object; a failing receiver is isolated and skips nobody, and the send
+    returns only after the last delivery."""
+    from charon_tpu.core.parsigex import MemTransport as RefMemTransport
     from charon_tpu_torch.core.parsigex import MemTransport
 
-    class Peer:
-        def __init__(self, share_idx, gate, entered, fail=False):
-            self.share_idx, self.gate, self.entered, self.fail = share_idx, gate, entered, fail
+    def trace(transport_cls):
+        log = []
 
-        async def receive(self, duty, signed_set, tctx=None, sender=None):
-            self.entered.append((self.share_idx, sender))
-            if self.fail:
-                raise RuntimeError("receiver down")
-            await self.gate.wait()
+        class Peer:
+            def __init__(self, share_idx, fail=False):
+                self.share_idx, self.fail = share_idx, fail
 
-    async def main():
-        net, gate, entered = MemTransport(), asyncio.Event(), []
-        for i in range(1, 5):
-            net.attach(Peer(i, gate, entered, fail=i == 2))
-        send = asyncio.create_task(net.send(1, Duty(0, DutyType.ATTESTER), {}))
-        await asyncio.sleep(0.05)
-        assert sorted(entered) == [(2, 1), (3, 1), (4, 1)]  # every peer holds it at once
-        assert not send.done()
-        gate.set()
-        await asyncio.wait_for(send, 1.0)
+            async def receive(self, duty, signed_set, tctx=None, sender=None):
+                log.append(("enter", self.share_idx, sender, duty, id(signed_set) == id(sset)))
+                await asyncio.sleep(0.01)
+                log.append(("leave", self.share_idx))
+                if self.fail:
+                    raise RuntimeError("receiver down")
 
-    asyncio.run(main())
+        sset = {"pk": "partial"}
+
+        async def main():
+            net = transport_cls()
+            for i in (3, 1, 4, 2):
+                net.attach(Peer(i, fail=i == 4))
+            await asyncio.wait_for(net.send(1, Duty(7, DutyType.ATTESTER), sset), 5.0)
+            log.append(("returned",))
+
+        asyncio.run(main())
+        return log
+
+    port, ref = trace(MemTransport), trace(RefMemTransport)
+    assert port == ref
+    duty = Duty(7, DutyType.ATTESTER)
+    assert port == [
+        ("enter", 3, 1, duty, True), ("leave", 3),
+        ("enter", 4, 1, duty, True), ("leave", 4),
+        ("enter", 2, 1, duty, True), ("leave", 2),
+        ("returned",),
+    ]
 
 
 @pytest.mark.parametrize(
@@ -286,13 +303,31 @@ def test_mem_transport_delivers_to_every_peer_at_once():
     ids=["chaos", "protocol_prefs", "flightrec"],
 )
 def test_unported_build_cluster_options_raise(option):
-    """chaos and flightrec raise, naming their ROADMAP item; protocol_prefs
+    """chaos raises, naming its ROADMAP item; protocol_prefs
     (core/priority.py, ported with the wire) builds every node on one
-    priority fabric."""
+    priority fabric; flightrec (app/flightrec.py, ported with
+    observability) gives every node its own recorder, which
+    `dump_flight` writes out for the cross-node merge."""
+    import tempfile
+
+    from charon_tpu_torch.app import flightrec
+
     port_tbls.set_implementation(PythonImpl())
     if "protocol_prefs" in option:
         cluster = port_simnet.build_cluster(n=4, t=3, **option)
         assert len(cluster.nodes) == 4
+        return
+    if "flightrec" in option:
+        cluster = port_simnet.build_cluster(n=4, t=3, **option)
+        recs = [node.flightrec for node in cluster.nodes]
+        assert all(isinstance(r, flightrec.FlightRecorder) for r in recs)
+        assert [r.node for r in recs] == ["node1", "node2", "node3", "node4"]
+        recs[2].record("lifecycle", "start")
+        with tempfile.TemporaryDirectory() as out:
+            paths = cluster.dump_flight(out)
+            assert len(paths) == 4
+            merged = flightrec.merge_jsonl(paths)
+        assert [(e["node"], e["kind"]) for e in merged] == [("node3", "start")]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         port_simnet.build_cluster(n=4, t=3, **option)

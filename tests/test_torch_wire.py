@@ -9,7 +9,8 @@ the JAX package.
     which needs testutil/chaos.py (ROADMAP item 13f); so do
     test_golden's `test_wire_envelope_golden`, test_spec_blocks'
     `test_proposal_wire_codec_roundtrip` and test_version_codec_guard but
-    `test_peerinfo_flags_incompatible_peer` (app/peerinfo.py, 13e).
+    `test_peerinfo_flags_incompatible_peer` (bound with the observability
+    cases in tests/test_torch_obs.py).
     `test_peer_codec_quarantine_exponential_backoff` passes here: the
     port's `P2PNode.send` keeps the connection on a response timeout
     (ROADMAP section 3), where the reference's drops it.
