@@ -27,20 +27,10 @@ _plane = None  # FaultPlane | None — module-global, like featureset
 
 
 def chaos_module():
-    """testutil/chaos.py, where the injectors live. The port does not
-    have it yet: without it a fault spec raises NotImplementedError
-    naming ROADMAP item 13f."""
-    import importlib
+    """testutil/chaos.py, where the injectors live, imported on first
+    use so an inert process never loads it."""
+    from charon_tpu_torch.testutil import chaos
 
-    try:
-        chaos = importlib.import_module("charon_tpu_torch.testutil.chaos")
-    except ModuleNotFoundError as e:
-        if e.name != "charon_tpu_torch.testutil.chaos":
-            raise
-        raise NotImplementedError(
-            "fault injection needs testutil/chaos.py, not ported yet "
-            "(ROADMAP item 13f)"
-        ) from None
     return chaos
 
 

@@ -337,18 +337,18 @@ class SlotCoalescer:
         disabled (or closed) the map runs inline on the caller."""
         if self.decode_workers <= 0 or self._closed:
             # stage spans are attribution: wall-clock windows for traces
-            w0 = time.time()
+            w0 = time.time()  # lint: allow(monotonic-clock) — stage span: wall-clock trace attribution
             out = [fn(it) for it in items]
-            return out, (), ((w0, time.time()),)
+            return out, (), ((w0, time.time()),)  # lint: allow(monotonic-clock)
         loop = asyncio.get_running_loop()
         pool = self._pool()
         submitted = time.monotonic()
 
         def run_chunk(chunk):
             t0 = time.monotonic()
-            w0 = time.time()
+            w0 = time.time()  # lint: allow(monotonic-clock) — stage span: wall-clock trace attribution
             out = [fn(it) for it in chunk]
-            return out, t0 - submitted, (w0, time.time())
+            return out, t0 - submitted, (w0, time.time())  # lint: allow(monotonic-clock)
 
         chunks = [items[i : i + self.DECODE_CHUNK] for i in range(0, len(items), self.DECODE_CHUNK)]
         parts = await asyncio.gather(*(loop.run_in_executor(pool, run_chunk, c) for c in chunks))
@@ -514,7 +514,7 @@ class SlotCoalescer:
             # monotonic base: snapshot the wall -> monotonic offset ONCE a
             # window, so a host clock step mid-window cannot translate later
             # submissions' deadlines inconsistently
-            self._wall_offset = now - time.time()
+            self._wall_offset = now - time.time()  # lint: allow(monotonic-clock) — the one-shot wall->monotonic anchor
         if deadline is not None:
             dl_mono = max(now, deadline + self._wall_offset)
             if self._queue_deadline is None or dl_mono < self._queue_deadline:
@@ -646,7 +646,7 @@ class SlotCoalescer:
     def _pack_flush(self, vq, rq):
         """Decode-pool thread: tensor packing and RLC randomness for the
         whole flush. Returns (vpack, rpack, pack_span) for _run_device."""
-        w0 = time.time()
+        w0 = time.time()  # lint: allow(monotonic-clock) — pack span: wall-clock trace attribution
         plane = self.plane
         parsed = self._decode_rung() == "device"
         vpack = None
@@ -660,7 +660,7 @@ class SlotCoalescer:
         if msg:
             pack = plane.pack_inputs_parsed if parsed else plane.pack_inputs
             rpack = (pack(ps, msg, sig, gpk, idx), plane.make_rand(len(msg)), len(msg))
-        return vpack, rpack, (w0, time.time())
+        return vpack, rpack, (w0, time.time())  # lint: allow(monotonic-clock)
 
     # -- device side (worker thread) --------------------------------------
 
@@ -704,7 +704,7 @@ class SlotCoalescer:
     ):
         # counters update only after both stages succeeded
         t0 = time.monotonic()
-        w0 = time.time()  # device span: wall-clock trace attribution
+        w0 = time.time()  # lint: allow(monotonic-clock) — device span: wall-clock trace attribution
         vpack, rpack, pack_span = packed if packed is not None else (None, None, None)
         lanes = 0
         pad_lanes = padded_lanes = 0 if packed is not None else None
@@ -757,7 +757,7 @@ class SlotCoalescer:
                 decode_python_lanes=python_n,
                 decode_spans=tuple(s for job in [*vq, *rq] for s in job.decode_spans),
                 pack_span=pack_span,
-                device_span=(w0, time.time()),
+                device_span=(w0, time.time()),  # lint: allow(monotonic-clock)
                 parents=tuple(job.parent for job in [*vq, *rq] if job.parent is not None),
                 tenant_lanes=self._job_tenant_lanes(vq, rq),
             ),

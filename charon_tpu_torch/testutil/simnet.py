@@ -12,8 +12,8 @@ tenant `node{i}` of the given `core/cryptosvc.CryptoPlaneService` and its
 SigAgg, ValidatorAPI and Eth2Verifier hold that TenantPlane, so on one
 card the n nodes are n tenants of one slot plane; with `crypto_remote=`
 some of them reach it over TCP as remote tenants
-(`core/cryptosvc_client.RemotePlane`). `chaos`, whose module the port
-does not have yet, raises NotImplementedError.
+(`core/cryptosvc_client.RemotePlane`). `chaos` builds the cluster on
+the seeded fault-injection plane (testutil/chaos.py).
 """
 
 from __future__ import annotations
@@ -57,6 +57,10 @@ class SimCluster:
     share_keys: list[dict[PubKey, bytes]]  # per node
     pubshares_by_idx: dict[int, dict[PubKey, bytes]]
     nodes: list["SimNode"] = field(default_factory=list)
+    # set when built with chaos: the shared fault-injection handles
+    chaos_transport: object | None = None
+    chaos_qbft: object | None = None
+    partitioner: object | None = None
     # set when built with crypto_service: the shared CryptoPlaneService
     # every node is a tenant of (its owner closes it)
     crypto_service: object | None = None
@@ -64,18 +68,32 @@ class SimCluster:
     # plane that node holds
     crypto_remote: object | None = None
 
-    # -- crash control -----------------------------------------------------
+    # -- chaos control (no-ops without a chaos build) ---------------------
 
     def crash_node(self, share_idx: int) -> None:
-        """Crash-stop a node mid-run: its scheduler halts."""
-        self.nodes[share_idx - 1].scheduler.stop()
+        """Crash-stop a node mid-run: its scheduler halts and the fault
+        plane black-holes its traffic in BOTH directions."""
+        node = self.nodes[share_idx - 1]
+        node.scheduler.stop()
+        if self.partitioner is not None:
+            self.partitioner.crash(share_idx)
 
     def restart_node(self, share_idx: int):
         """Restart a crashed node; returns the new scheduler task
         (crash-only model: same wired components, fresh tick loop)."""
+        if self.partitioner is not None:
+            self.partitioner.restart(share_idx)
         node = self.nodes[share_idx - 1]
         node.scheduler.reset()
         return asyncio.create_task(node.scheduler.run())
+
+    def partition(self, side_a, side_b, symmetric: bool = True) -> None:
+        assert self.partitioner is not None, "build_cluster(chaos=...) first"
+        self.partitioner.partition(side_a, side_b, symmetric)
+
+    def heal(self) -> None:
+        if self.partitioner is not None:
+            self.partitioner.heal()
 
     def close(self) -> None:
         """Release per-node resources (crypto-plane pools, trace JSONL
@@ -238,8 +256,10 @@ def build_cluster(
     """Create keys and wire n in-process nodes (ref: app/app.go simnet +
     cluster/test_cluster.go generator, redesigned for asyncio).
 
-    `chaos` (the fault-injection plane, testutil/chaos.py) needs a
-    module the port does not have yet and raises NotImplementedError.
+    With `chaos`, the cluster is built on the fault-injection plane:
+    chaos transports for parsig exchange and QBFT messages, a ChaosBeacon
+    around the shared mock, and a Partitioner for crash/restart and
+    partition/heal control.
     `flightrec` gives every node its own post-mortem ring with the
     production hook chains (evidence, round changes, duty outcomes,
     flush summaries); dump with cluster.dump_flight().
@@ -267,11 +287,6 @@ def build_cluster(
     TenantPlane: a core/cryptosvc_client.RemotePlane whose local rung is
     that TenantPlane, as app/run.py wires a node with a remote crypto
     service (return the TenantPlane itself to keep a node in-process)."""
-    if chaos is not None:
-        raise NotImplementedError(
-            "build_cluster(chaos=...) needs testutil/chaos.py, not ported "
-            "yet (ROADMAP item 13f)"
-        )
     if crypto_service is not None and crypto_plane:
         raise ValueError("crypto_service and crypto_plane exclude each other")
     if crypto_remote is not None and crypto_service is None:
@@ -304,6 +319,13 @@ def build_cluster(
         slots_per_epoch=slots_per_epoch,
     )
 
+    partitioner = None
+    if chaos is not None:
+        from charon_tpu_torch.testutil.chaos import ChaosBeacon, Partitioner
+
+        partitioner = Partitioner()
+        beacon = ChaosBeacon(beacon, chaos)
+
     cluster = SimCluster(
         n=n,
         t=t,
@@ -312,16 +334,29 @@ def build_cluster(
         group_pubkeys=group_pubkeys,
         share_keys=share_keys,
         pubshares_by_idx=pubshares_by_idx,
+        partitioner=partitioner,
         crypto_service=crypto_service,
         crypto_remote=crypto_remote,
     )
 
-    transport = MemTransport()
+    if chaos is not None:
+        from charon_tpu_torch.testutil.chaos import ChaosParSigTransport
+
+        transport = ChaosParSigTransport(chaos, partitioner)
+        cluster.chaos_transport = transport
+    else:
+        transport = MemTransport()
     qbft_net = None
     if use_qbft:
-        from charon_tpu_torch.core.consensus_qbft import MemMsgNet
+        if chaos is not None:
+            from charon_tpu_torch.testutil.chaos import ChaosMsgNet
 
-        qbft_net = MemMsgNet()
+            qbft_net = ChaosMsgNet(chaos, partitioner)
+            cluster.chaos_qbft = qbft_net
+        else:
+            from charon_tpu_torch.core.consensus_qbft import MemMsgNet
+
+            qbft_net = MemMsgNet()
     # priority negotiation fabric (opt-in: protocol_prefs per node)
     prio_fabric = None
     if protocol_prefs is not None:

@@ -3,9 +3,17 @@
 
     python3 chip_smoke.py [--validators 1024] [--seed 1] [--workers 8] [--python-decode] [--node-slot 48]
     python3 chip_smoke.py --node-sweep 12,24,36   # the kernel build and the node phase alone, at each slot
+    python3 chip_smoke.py --int8                  # the kernel build and phase 5 (int8) alone
+    python3 chip_smoke.py --dkg                   # the kernel build and phase 9 alone
     python3 chip_smoke.py --ceremony              # the kernel build and phase 9's cluster ceremony alone
+    python3 chip_smoke.py --adversarial           # the kernel build and phase 11 alone, on a plane of its own
 
-Phases, in order; any failure exits non-zero and prints no result:
+Phases; any failure exits non-zero and prints no result. Phases 1-4, 6,
+7, 8, 11 and 12 run in order in this process; phase 5 with phase 7's int8
+half (`--int8`), phase 9 (`--dkg`) and phase 10 (`--node-sweep`) run in
+processes of their own, started after phase 4 and run on the same card
+beside phases 6-8 (each phase is bound by the host, the card idle most of
+the time), and this process waits for all three after phase 8:
 
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. the kernel build from charon_tpu_torch/csrc, one nvcc per source, all
@@ -24,7 +32,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      startup tuner on the card: autotune.resolve("force") over the
      mxu_mont axis (K1-K3 vs K4-K6) at the duty's lane count, its timings,
      spread and choice;
-  5. the int8 configuration (KernelConfig(mxu_mont=True).apply()): first
+  5. in a process of its own (`--int8`, with its own host setup from the
+     same seed), the int8 configuration (KernelConfig(mxu_mont=True).apply()): first
      the device decode batteries: decompress_g2_batch and
      decompress_g1_batch, with and without the subgroup check, on every
      edge class of the mask contract (both signs, infinity, bad flags,
@@ -63,10 +72,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      flush under the int8 configuration. All ten programs must run, each
      part launching its configuration's kernels only; each flush's stats
      and each program's walls and lanes;
-  9. the DKG and resharing ceremonies (dkg/frost.py, dkg/reshare.py and
+  9. in a process of its own (`--dkg`), the DKG and resharing ceremonies (dkg/frost.py, dkg/reshare.py and
      the engine's ceremony calls): one node's round-2 verification waves
-     of a 4-of-7 FROST DKG over 5,000 validators (BASELINE config 4's
-     10,000, halved for time), 35,000 lanes each: the proof-of-knowledge wave ([mu]G by the
+     of a 4-of-7 FROST DKG over 2,000 validators (BASELINE config 4's
+     10,000, cut for time), 14,000 lanes each: the proof-of-knowledge wave ([mu]G by the
      fixed-base table against R + [c]A0 by the ladder and a G1 sum), the
      share wave ([f_i(me)]G against the Straus commitment evaluation) and
      the pubshare wave (width 28 against [s_j]G), every commitment and nonce
@@ -98,8 +107,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      4-of-7, 16-validator cluster as seven `charon run` nodes. Its
      directories come from testutil/compose.generate through the port's
      `create-cluster` (written by a process of its own,
-     `--make-node-cluster`, started after phase 4's tuner while the card
-     works); its ports are picked as the nodes launch. Node 0 runs in the
+     `--make-node-cluster`, started after phase 4's tuner; the phase's
+     process starts when it has ended); its ports are picked as the nodes launch. Node 0 runs in the
      phase's process through app/run.run with the Config `cmd/cli` builds
      from its line, serving the card's plane (TorchImpl, SlotCryptoPlane
      and coalescer behind the tenant service) over TCP; its boot loads
@@ -122,13 +131,35 @@ Phases, in order; any failure exits non-zero and prints no result:
      processes, node 0's flushes with its device memory and RSS, slot
      start to broadcast per duty (node 0, remote), QBFT rounds, planeprof,
      the event loop's stalls;
- 11. every kernel timed at the four row counts its duty launched it at
+ 11. adversarial input on the card, in the main process after phases 8-10,
+     under the default configuration (K1 Fp, K1 Fr, K2 and K3 must launch,
+     K4-K6 never): (a) a seeded battery (adversarial_battery: ADV_LANES
+     verify_batch lanes from two 4-of-7 splits: valid partials,
+     chaos.forged_signatures, partials against another share's pubkey,
+     off-subgroup G2 points, the infinity encoding, 95- and 97-byte
+     signatures; per-lane verify; threshold sets with a repeated signer, a
+     forged member and index 0; aggregate and verify_aggregate) through
+     testutil/byzantine.differential_backend() over a TorchImpl on the
+     card in the tbls registry: every verdict the battery's, zero
+     mismatches against the port's PythonImpl on the host, every lane
+     checked, each call's wall (card and oracle, and the card's share);
+     (b) a CryptoPlaneService over phase 8's coalescer and plane (caches
+     warm, no new prewarm) with two tenants: the abuser sends bursts of
+     ADV_BURST forged lanes and cancels every second one in flight, the victim
+     runs ADV_VICTIM_DUTIES duties of valid partials under ADV_BUDGET s
+     deadlines (K1 Fp, K2 and K3: the flood only verifies); the victim
+     misses nothing and every verdict of it is True,
+     every abuser lane is False, the abuser's breaker opens and a
+     quarantined flush of its lanes alone runs the plane's programs on the
+     card, every damage counter names the abuser only; each flush's lanes
+     by tenant and wall, the programs' walls;
+ 12. every kernel timed at the four row counts its duty launched it at
      most often (from mont_kernels.ROWS, the rows-per-launch map filled
      during phases 5-6), each beside its bound;
- 12. the kernels JSON line (with each kernel's launches in the full-width
+ 13. the kernels JSON line (with each kernel's launches in the full-width
      plane slot, or in the int8 plane flush for K4-K6, in the three
-     full-width DKG waves, or the int8 share wave for K4-K6, and in the
-     node phase), then the result line.
+     full-width DKG waves, or the int8 share wave for K4-K6, in the node
+     phase and in phase 11), then the result line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -197,8 +228,15 @@ DUTY_MESSAGES = 8
 _T0 = time.perf_counter()
 
 
+def _emit(line: str) -> None:
+    """One whole line to stdout in one write: the phase processes' lines are
+    passed through by threads while this process logs."""
+    sys.stdout.write(line if line.endswith("\n") else line + "\n")
+    sys.stdout.flush()
+
+
 def log(*parts) -> None:
-    print(f"[{time.perf_counter() - _T0:7.1f}s]", *parts, flush=True)
+    _emit(" ".join([f"[{time.perf_counter() - _T0:7.1f}s]", *map(str, parts)]))
 
 
 def card_line() -> str:
@@ -405,7 +443,7 @@ def check_kernels(seed: int) -> dict:
 
 
 def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
-    """Phase 11: each kernel's time (C entry point alone, CUDA events over
+    """Phase 12: each kernel's time (C entry point alone, CUDA events over
     200 queued launches) at the DUTY_SHAPES row counts its duty launched it at
     most often, beside the bound. The operands stay in L2 across the
     launches, as on the duty, where each kernel's operands were written by
@@ -564,17 +602,13 @@ def decode_batteries(seed: int):
     P = F.P
 
     def off_subgroup(curve):
+        if curve == "g2":
+            return _off_subgroup_g2(rng)
         while True:
-            if curve == "g2":
-                x = (rng.randrange(P), rng.randrange(P))
-                y = F.fp2_sqrt(F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), g1g2.B2))
-                if y is not None and not g1g2.g2_in_subgroup((x, y)):
-                    return g1g2.g2_to_bytes((x, y))
-            else:
-                x = rng.randrange(P)
-                y = F.fp_sqrt((x * x * x + g1g2.B1) % P)
-                if y is not None and not g1g2.g1_in_subgroup((x, y)):
-                    return g1g2.g1_to_bytes((x, y))
+            x = rng.randrange(P)
+            y = F.fp_sqrt((x * x * x + g1g2.B1) % P)
+            if y is not None and not g1g2.g1_in_subgroup((x, y)):
+                return g1g2.g1_to_bytes((x, y))
 
     def non_residue(curve):
         while True:
@@ -994,7 +1028,7 @@ def _flush(coal, verify_calls: list, recombine_calls: list, walls: dict, label: 
     return out[: len(verify_calls)], out[len(verify_calls) :], wall, launches, fams
 
 
-def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
+def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
     """The slot crypto plane (parallel/mesh.SlotCryptoPlane, one card) under
     its coalescer (core/cryptoplane.SlotCoalescer, decode_mode "auto", i.e.
     the device decode), under the default configuration: the boot warm-up
@@ -1007,7 +1041,9 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
     coalescer (step_rlc, step, verify_rlc, verify), then a flush under the
     int8 configuration. All ten programs must run; each part launches its
     configuration's kernels and none of the other's. Returns the full-width
-    slot's launches (default kernels) and the int8 flush's (int8 ones)."""
+    slot's launches (default kernels) and the int8 flush's (int8 ones), and
+    the coalescer, still open with its caches warm, and its program walls,
+    for phase 11; the caller closes it."""
     import asyncio
     import dataclasses
 
@@ -1126,10 +1162,13 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
             }))
         log(f"plane: all {len(ran)} programs ran; flushes {coal.flushes}, coalesced {coal.coalesced_flushes}, "
             f"lanes {coal.lanes_flushed}, padding lanes {coal.pad_lanes_flushed}, failed {coal.failed_flushes}")
-    finally:
+    except BaseException:
         coal.close()
+        raise
+    finally:
         MK.reset_launches()
-    return {name: (int8_launches if name in INT8_KERNELS else slot_launches)[name] for name in KERNELS}
+    launches = {name: (int8_launches if name in INT8_KERNELS else slot_launches)[name] for name in KERNELS}
+    return launches, coal, walls
 
 
 # ---------------------------------------------------------------------------
@@ -1137,12 +1176,14 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 DKG_N, DKG_T = 7, 4  # the 4-of-7 split of BASELINE configs 1-2
-# BASELINE config 4 has 10,000; the waves' walls follow their lanes, and
-# half of them keeps the script under 1,000 s (PERF.md section 4)
-DKG_VALIDATORS = 5_000
+# BASELINE config 4 has 10,000; the waves' walls follow their lanes, and a
+# fifth of them makes room for phase 11 in the 1,100 s aim (PERF.md section 4)
+DKG_VALIDATORS = 2_000
 DKG_ME = 1  # the node whose round 2 the phase runs
 DKG_SAMPLE = 64  # lanes of each wave held against the host oracle
 DKG_INT8_LANES = 1024
+DKG_LAUNCHES = "dkg_launches"  # the key of the --dkg process's launch line
+INT8_RESULT = "int8_duty"  # the key of the --int8 process's line: the duty's launches and rows per launch
 # the rotation: n, t, validators; cut from bench_dkg.py's accelerator shape
 # (4, 3, 16) to three nodes, the fewest `create-dkg` accepts, to make room
 # for the node phase (each node's round 2 is a few launch-bound ladders
@@ -1557,11 +1598,12 @@ NODE_DUTIES = ("attester", "randao", "proposer")  # a slot's, in the broadcast s
 # genesis this long after the nodes are launched: node 0's boot (the tuner's
 # profile load, prewarm, the point-cache warm-up), the remote nodes' boots
 # and their probes run first. They took 36.0-58.0 s in node sweeps and
-# whole runs on the card (PERF.md section 4); a cluster not ready by
-# genesis fails the phase. Genesis at the launch, with the first slot after the
+# whole runs on the card with the card to themselves (PERF.md section 4);
+# beside phases 5-9 they share it and the host's cores, and a cluster not
+# ready by genesis fails the phase. Genesis at the launch, with the first slot after the
 # cluster is ready measured, missed that slot's deadline: the card does not
 # keep up with a slot every 48 s, so the slots of the boot pile up
-NODE_BOOT = 75.0
+NODE_BOOT = 120.0
 # the remote nodes' own planes only back their RemotePlane up: no tuner,
 # prewarm or warm-up of their own
 NODE_REMOTE_FLAGS = ("--crypto-plane", "on", "--crypto-autotune", "off", "--crypto-plane-prewarm", "off",
@@ -2240,25 +2282,464 @@ def node_sweep(seed: int, slots: list, cluster_dir: str | None = None) -> int:
     return 0 if passed else 1
 
 
-def run_node_process(seed: int, slot: float, cluster_dir: str | None = None) -> dict:
-    """Phase 10 in a process of its own (`--node-sweep <slot>`), as a node
-    boots: a fresh process, with none of the earlier phases' state (run
-    in this process after them, its flushes ran slower than in a fresh
-    one and slot 0 missed its deadline; PERF.md section 6). Its output is
-    passed through; returns the launches it reports."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--node-sweep", str(slot), "--seed", str(seed)]
-    if cluster_dir:
-        cmd += ["--node-cluster", cluster_dir]
-    launches = None
-    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
-        for line in proc.stdout:
-            if line.startswith("{" + json.dumps(NODE_LAUNCHES)):
-                launches = json.loads(line)[NODE_LAUNCHES]
-            else:
-                print("  node process " + line, end="", flush=True)
-        rc = proc.wait()
-    if rc != 0 or launches is None:
-        raise AssertionError(f"node phase: its process exited {rc}")
+class PhaseProcess:
+    """A phase in a process of its own, started at once, or as soon as the
+    process `after` has exited 0, and run beside this process's phases on
+    the same card. A thread passes its stdout through line by line under
+    `label` and keeps the one line that starts with {"<key>": as the
+    phase's result. It stays in this process's group, so that what ends the
+    script's group ends it too; stop() ends it and every process it started
+    (the node phase's nodes 1-6)."""
+
+    def __init__(self, label: str, cmd: list, key: str, after=None, after_log: str | None = None):
+        import threading
+
+        self.label, self.cmd, self.key, self.after, self.after_log = label, cmd, key, after, after_log
+        self.proc, self.result, self.error = None, None, None
+        self._lock = threading.Lock()
+        self._stopped = False
+        self._thread = threading.Thread(target=self._run, name=label, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            if self.after is not None:
+                rc = self.after.wait()
+                tail = open(self.after_log).read() if self.after_log else ""
+                for line in tail.splitlines():
+                    _emit(f"  {self.label} {line}")
+                if rc != 0:
+                    self.error = f"{self.label}: the process it waits for exited {rc}"
+                    return
+            with self._lock:
+                if self._stopped:
+                    return
+                self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE, text=True)
+            for line in self.proc.stdout:
+                if line.startswith("{" + json.dumps(self.key)):
+                    self.result = json.loads(line)[self.key]
+                else:
+                    _emit(f"  {self.label} {line}")
+            rc = self.proc.wait()
+            if rc != 0 or self.result is None:
+                self.error = f"{self.label}: exited {rc}" + ("" if self.result is not None else " with no result line")
+        except Exception as e:  # noqa: BLE001 — reported by wait()
+            self.error = f"{self.label}: {e!r}"
+
+    def wait(self):
+        """The phase's result, once its process has ended; raises if it failed."""
+        self._thread.join()
+        if self.error:
+            raise AssertionError(self.error)
+        return self.result
+
+    def stop(self) -> None:
+        """End the process and every process it started, if it still runs."""
+        import signal
+
+        with self._lock:
+            self._stopped = True
+            proc = self.proc
+        if proc is not None and proc.poll() is None:
+            for pid in [proc.pid, *_descendants(proc.pid)]:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            proc.wait()
+        self._thread.join(timeout=30)
+
+
+def _descendants(pid: int) -> list:
+    """The processes below `pid`, from /proc's parent links."""
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                stat = open(f"/proc/{entry}/stat").read()
+            except OSError:
+                continue
+            ppid = int(stat.rsplit(")", 1)[1].split()[1])
+            children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def phase_command(*flags) -> list:
+    """This script, run again with `flags`, as a phase's process."""
+    return [sys.executable, os.path.abspath(__file__), *map(str, flags)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: adversarial input on the card
+# ---------------------------------------------------------------------------
+
+ADV_LANES = 56  # verify_batch lanes of the differential battery, 65 lanes with its other calls
+ADV_VALIDATORS = 2  # group keys of the battery, each split 4-of-7
+ADV_N, ADV_T = 7, 4
+ADV_VICTIM_DUTIES = 2  # the victim tenant's duties, one after another: beside a shared flush, then a quarantined one
+ADV_VICTIM_LANES = 4  # valid partials a victim duty verifies
+ADV_BUDGET = 120.0  # s: a victim duty's deadline, above a flush's 4.7-23 s on the card (PERF.md section 5)
+ADV_BURST = 24  # forged lanes of one abuser burst
+ADV_BURSTS = 4  # the abuser's bursts: the first shares a flush with the victim, every second one is cancelled
+ADV_ABUSER_QUOTA = dict(breaker_window=64, breaker_min_lanes=16, breaker_threshold=0.5, breaker_cooldown=3600.0)
+# the kind whose first lane also goes through verify: a decodable partial that
+# fails only at the pairing (verify_batch holds every kind)
+ADV_VERIFY_KINDS = ("wrong-share",)
+
+
+def _off_subgroup_g2(rng) -> bytes:
+    """The compressed encoding of a point on the G2 curve outside the
+    r-torsion subgroup."""
+    from charon_tpu_torch.crypto import fields as F
+    from charon_tpu_torch.crypto import g1g2
+
+    while True:
+        x = (rng.randrange(F.P), rng.randrange(F.P))
+        y = F.fp2_sqrt(F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), g1g2.B2))
+        if y is not None and not g1g2.g2_in_subgroup((x, y)):
+            return g1g2.g2_to_bytes((x, y))
+
+
+def adversarial_battery(seed: int, lanes: int = ADV_LANES) -> dict:
+    """Phase 11's differential battery, host only, seeded: ADV_VALIDATORS
+    group keys split ADV_T-of-ADV_N, and for each tbls call its lanes with
+    the verdict every backend must give. verify_batch: `lanes` lanes of
+    valid partials, `chaos.forged_signatures` (well-formed flags, garbage
+    field bytes), partials checked against another share's pubkey, points
+    on the curve off the subgroup, the infinity encoding and signatures of
+    95 and 97 bytes; verify: the first lane of each ADV_VERIFY_KINDS kind; threshold
+    aggregation: each key's t-subset (the group signature), a set whose
+    signer repeats under a second index (a wrong group signature), a set
+    with a forged member, a set with index 0 (both raise); aggregate over
+    one key's partials and over the group signatures, and verify_aggregate
+    with a wrong-share member."""
+    from charon_tpu_torch.crypto import bls, g1g2, shamir
+    from charon_tpu_torch.tbls.python_impl import PythonImpl
+    from charon_tpu_torch.testutil.chaos import forged_signatures
+
+    rng = random.Random(f"adversarial/{seed}")
+    host = PythonImpl()
+    keys = []
+    for v in range(ADV_VALIDATORS):
+        sk = bls.keygen(rng.randbytes(32))
+        shares = shamir.split(sk, ADV_N, ADV_T, rand=lambda: rng.randrange(1, shamir.R))
+        msg = hashlib.sha256(f"adversarial/{seed}/{v}".encode()).digest()
+        keys.append({
+            "pk": g1g2.g1_to_bytes(bls.sk_to_pk(sk)),
+            "msg": msg,
+            "sig": g1g2.g2_to_bytes(bls.sign(sk, msg)),
+            "pubshares": {i: g1g2.g1_to_bytes(bls.sk_to_pk(s)) for i, s in shares.items()},
+            "partials": {i: g1g2.g2_to_bytes(bls.sign(s, msg)) for i, s in shares.items()},
+        })
+
+    def pick():
+        return keys[rng.randrange(len(keys))], rng.randrange(1, ADV_N + 1)
+
+    rare = max(1, lanes // 16)
+    counts = {"forged": max(1, lanes // 8), "wrong-share": max(1, lanes // 8), "off-subgroup": rare,
+              "infinity": rare, "wrong-length": rare}
+    counts["valid"] = lanes - sum(counts.values())
+    batch = []
+    for kind, count in counts.items():
+        forged = forged_signatures(count, rng) if kind == "forged" else None
+        for c in range(count):
+            key, i = pick()
+            sig = {
+                "valid": lambda: key["partials"][i],
+                "forged": lambda: forged[c],
+                "wrong-share": lambda: key["partials"][i % ADV_N + 1],
+                "off-subgroup": lambda: _off_subgroup_g2(rng),
+                "infinity": lambda: g1g2.g2_to_bytes(None),
+                "wrong-length": lambda: key["partials"][i][:95] if c % 2 == 0 else key["partials"][i] + b"\x00",
+            }[kind]()
+            batch.append((kind, (key["pubshares"][i], key["msg"], sig), kind == "valid"))
+    rng.shuffle(batch)
+    first = {}
+    for kind, lane, want in batch:
+        if kind in ADV_VERIFY_KINDS:
+            first.setdefault(kind, (kind, lane, want))
+
+    sets, raising = [], []
+    for v, key in enumerate(keys):
+        idx = sorted(rng.sample(range(1, ADV_N + 1), ADV_T))
+        sets.append((f"valid-{v}", {i: key["partials"][i] for i in idx}, key["sig"]))
+    key, idx = keys[0], sorted(rng.sample(range(1, ADV_N + 1), ADV_T))
+    repeated = {i: key["partials"][i] for i in idx}
+    repeated[idx[1]] = key["partials"][idx[0]]
+    sets.append(("repeated-signer", repeated, None))  # any signature but the group's
+    forged_member = {i: key["partials"][i] for i in idx}
+    forged_member[idx[-1]] = forged_signatures(1, rng)[0]
+    raising.append(("forged-member", forged_member))
+    raising.append(("index-0", {0: key["partials"][idx[0]], **{i: key["partials"][i] for i in idx[1:]}}))
+
+    signers = list(range(1, ADV_T + 1))
+    pubs = [key["pubshares"][i] for i in signers]
+    parts = [key["partials"][i] for i in signers]
+    wrong = parts[:-1] + [key["partials"][ADV_T + 1]]
+    aggregates = [("partials", parts), ("group-signatures", [k["sig"] for k in keys])]
+    agg = {name: host.aggregate(sigs) for name, sigs in aggregates + [("wrong-share", wrong)]}
+    # a valid aggregate verifies on the card in phase 9 (the lock and the
+    # deposits): here the one with a wrong-share member
+    verify_aggregates = [("wrong-share", pubs, key["msg"], agg["wrong-share"], False)]
+    return {
+        "keys": keys, "verify_batch": batch, "verify": list(first.values()), "threshold": sets,
+        "threshold_raising": raising, "aggregate": aggregates, "aggregate_want": agg,
+        "verify_aggregate": verify_aggregates, "counts": counts,
+    }
+
+
+def battery_lanes(battery: dict) -> int:
+    """The lanes DifferentialTbls checks over one drive of the battery."""
+    return sum(len(battery[k]) for k in
+               ("verify_batch", "verify", "threshold", "threshold_raising", "aggregate", "verify_aggregate"))
+
+
+def drive_battery(battery: dict, sync=lambda: None) -> dict:
+    """Every call of the battery through the tbls registry (the caller has
+    installed the backend, e.g. inside byzantine.differential_backend()),
+    each outcome held to the battery's verdicts; returns each call's wall
+    time, s. `sync` waits for the device before a clock is read."""
+    from charon_tpu_torch import tbls
+
+    walls = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def outcome(fn):
+        try:
+            fn()
+            return True
+        except tbls.TblsError:
+            return False
+
+    lanes = battery["verify_batch"]
+    got = timed("verify_batch", lambda: tbls.verify_batch([lane for _, lane, _ in lanes]))
+    bad = [kind for (kind, _, want), ok in zip(lanes, got) if bool(ok) != want]
+    if bad:
+        raise AssertionError(f"adversarial verify_batch: wrong verdicts on {bad}")
+    for kind, lane, want in battery["verify"]:
+        if timed("verify", lambda: outcome(lambda: tbls.verify(*lane))) != want:
+            raise AssertionError(f"adversarial verify: wrong verdict on {kind}")
+    sets = battery["threshold"]
+    sigs = timed("threshold_aggregate_batch", lambda: tbls.threshold_aggregate_batch([p for _, p, _ in sets]))
+    for (name, _, want), sig in zip(sets, sigs):
+        if (sig != want) if want is not None else (sig == battery["keys"][0]["sig"]):
+            raise AssertionError(f"adversarial threshold_aggregate_batch: wrong signature for {name}")
+    for name, partials in battery["threshold_raising"]:
+        if timed("threshold_aggregate", lambda: outcome(lambda: tbls.threshold_aggregate(partials))):
+            raise AssertionError(f"adversarial threshold_aggregate: {name} did not raise")
+    for name, group in battery["aggregate"]:
+        if timed("aggregate", lambda: tbls.aggregate(group)) != battery["aggregate_want"][name]:
+            raise AssertionError(f"adversarial aggregate: wrong aggregate of {name}")
+    for name, pubs, msg, sig, want in battery["verify_aggregate"]:
+        if timed("verify_aggregate", lambda: outcome(lambda: tbls.verify_aggregate(pubs, msg, sig))) != want:
+            raise AssertionError(f"adversarial verify_aggregate: wrong verdict on {name}")
+    return walls
+
+
+def run_differential(seed: int) -> dict:
+    """Phase 11 (a): the battery through byzantine.differential_backend()
+    over a TorchImpl on the card in the tbls registry, every verdict held
+    lane by lane against the port's PythonImpl on the host; zero
+    mismatches, every lane checked. Returns the launches."""
+    import torch
+
+    from charon_tpu_torch import tbls
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.tbls.torch_impl import TorchImpl
+    from charon_tpu_torch.testutil import byzantine
+
+    t0 = time.perf_counter()
+    battery = adversarial_battery(seed)
+    log(f"adversarial battery: {json.dumps(battery['counts'])} verify_batch lanes, {battery_lanes(battery)} lanes "
+        f"in all, built on the host in {time.perf_counter() - t0:.1f} s")
+    prev = tbls._current
+    tbls.set_implementation(TorchImpl())
+    inner_s = {}
+    depth = [0]  # TorchImpl's calls nest (a False batch re-checks lane by lane): time the outer one
+    try:
+        with byzantine.differential_backend() as diff:
+            # time the card's calls apart from the oracle's
+            for name in ("verify", "verify_batch", "threshold_aggregate", "threshold_aggregate_batch", "aggregate",
+                         "verify_aggregate"):
+                fn = getattr(diff.inner, name)
+
+                def card_call(*args, _fn=fn, _name=name, **kw):
+                    if depth[0]:
+                        return _fn(*args, **kw)
+                    depth[0] += 1
+                    t = time.perf_counter()
+                    try:
+                        return _fn(*args, **kw)
+                    finally:
+                        torch.cuda.synchronize()
+                        inner_s[_name] = inner_s.get(_name, 0.0) + time.perf_counter() - t
+                        depth[0] -= 1
+
+                setattr(diff.inner, name, card_call)
+            MK.reset_launches()
+            walls = drive_battery(battery, torch.cuda.synchronize)
+            launches = dict(MK.LAUNCHES)
+        byzantine.assert_no_mismatches(diff)
+        if diff.lanes_checked != battery_lanes(battery):
+            raise AssertionError(f"adversarial: {diff.lanes_checked} lanes checked, the battery has {battery_lanes(battery)}")
+    finally:
+        tbls._current = prev
+    log(f"adversarial differential: zero mismatches over {diff.lanes_checked} lanes; walls (card + oracle) s: "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}) + "; the card's share s: "
+        + json.dumps({k: round(v, 3) for k, v in inner_s.items()}))
+    log("adversarial differential launches:", json.dumps(launches))
+    _check_launches(launches, "adversarial differential", DEFAULT_KERNELS, INT8_KERNELS)
+    MK.reset_launches()
+    return launches
+
+
+def run_tenant_flood(coal, walls: dict, seed: int) -> dict:
+    """Phase 11 (b): a CryptoPlaneService over phase 8's coalescer and
+    plane (caches warm, no new prewarm) with two tenants. The abuser sends
+    bursts of forged lanes and cancels every second one in flight; the
+    victim runs ADV_VICTIM_DUTIES duties of valid partials under
+    ADV_BUDGET deadlines, while the abuser's ADV_BURSTS bursts last. The
+    victim misses nothing and every verdict of
+    it is True, every abuser lane is False, the abuser's breaker opens and
+    its quarantined flushes run the plane's programs on the card, and
+    every damage counter names the abuser only. Returns the launches."""
+    import asyncio
+
+    from charon_tpu_torch.core.cryptosvc import CryptoPlaneService, PlaneOverloadError, TenantQuota
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.testutil.chaos import ChaosConfig, forged_signatures
+
+    key = adversarial_battery(seed, lanes=16)["keys"][0]
+    items = [(key["pubshares"][i], key["msg"], key["partials"][i]) for i in range(1, ADV_VICTIM_LANES + 1)]
+    rng = ChaosConfig(seed=seed).stream("tenant:forged")
+    stats: list = []
+    shared_hook = coal.stats_hook
+    coal.stats_hook = stats.append
+    walls.clear()
+
+    async def flood():
+        svc = CryptoPlaneService(coal, round_lanes=64, round_interval=0.01)
+        victim = svc.register("tenant-b")
+        abuser = svc.register("tenant-a", TenantQuota(**ADV_ABUSER_QUOTA))
+        stop = asyncio.Event()
+        abuser_verdicts, cancelled, victim_walls = [], [0], []
+
+        async def one_burst():
+            forged = [(key["pubshares"][1], key["msg"], s) for s in forged_signatures(ADV_BURST, rng)]
+            try:
+                abuser_verdicts.extend(await abuser.verify(forged, deadline=time.time() + ADV_BUDGET))
+            except PlaneOverloadError:
+                pass
+
+        async def crash_looping_flood():
+            for burst in range(1, ADV_BURSTS + 1):
+                if stop.is_set():
+                    break
+                task = asyncio.create_task(one_burst())
+                await asyncio.sleep(rng.uniform(0.0, 0.01))
+                if burst % 2 == 0:
+                    task.cancel()  # every second burst: the abuser's node crashes mid-flight
+                    cancelled[0] += 1
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+                await asyncio.sleep(rng.uniform(0.0, 0.005))
+
+        flooding = asyncio.create_task(crash_looping_flood())
+        missed = 0
+        try:
+            for _ in range(ADV_VICTIM_DUTIES):
+                t0 = time.monotonic()
+                try:
+                    res = await asyncio.wait_for(
+                        victim.verify(list(items), deadline=time.time() + ADV_BUDGET), timeout=ADV_BUDGET
+                    )
+                    ok = res == [True] * len(items)
+                except Exception as e:  # noqa: BLE001 — any failure is a missed duty
+                    log(f"adversarial tenant flood: a victim duty failed: {type(e).__name__}: {e}")
+                    ok = False
+                victim_walls.append(time.monotonic() - t0)
+                missed += not ok
+        finally:
+            stop.set()
+            await flooding
+            svc.close()
+        return svc, missed, abuser_verdicts, cancelled[0], victim_walls
+
+    MK.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        svc, missed, abuser_verdicts, cancelled, victim_walls = asyncio.run(flood())
+    finally:
+        coal.stats_hook = shared_hook
+    wall = time.perf_counter() - t0
+    launches = dict(MK.LAUNCHES)
+    a, b = svc.tenant("tenant-a"), svc.tenant("tenant-b")
+    quarantined = [st for st in stats if dict(st.tenant_lanes).keys() == {"tenant-a"} and st.device_span]
+    for st in stats:
+        log(f"adversarial flush: {st.lanes} lanes {json.dumps(dict(st.tenant_lanes))} in {st.flush_seconds:.3f} s, "
+            f"decode {st.decode_mode}")
+    log(f"adversarial tenant flood: {wall:.3f} s; victim duties {[round(w, 3) for w in victim_walls]} s, missed "
+        f"{missed}; abuser {len(abuser_verdicts)} lanes answered, {cancelled} bursts cancelled, breaker "
+        f"{json.dumps(a.breaker.transitions)}, quarantined flushes {a.quarantined_flushes}, failed lanes "
+        f"{a.failed_lanes}; programs " + json.dumps(
+            {fam: [len(runs), round(sum(s for s, _ in runs), 3), sum(k for _, k in runs)] for fam, runs in walls.items()}
+        ))
+    log("adversarial tenant flood launches:", json.dumps(launches))
+    if missed:
+        raise AssertionError(f"adversarial tenant flood: the victim missed {missed} duties")
+    if not cancelled:
+        raise AssertionError("adversarial tenant flood: no abuser burst was cancelled in flight")
+    if not abuser_verdicts or any(abuser_verdicts):
+        raise AssertionError(f"adversarial tenant flood: abuser verdicts {abuser_verdicts}, want every lane False")
+    if a.breaker.transitions.get("open", 0) < 1 or a.quarantined_flushes < 1 or not quarantined:
+        raise AssertionError("adversarial tenant flood: the abuser's breaker never opened or no quarantined flush "
+                             "ran on the card")
+    if a.quarantine_coal is None or a.quarantine_coal.flushes < 1 or not walls:
+        raise AssertionError("adversarial tenant flood: the quarantine coalescer ran no program")
+    if b.breaker.state != "closed" or b.breaker.transitions or b.shed or b.shed_lanes:
+        raise AssertionError(f"adversarial tenant flood: damage attributed to the victim: {b.breaker.transitions}")
+    if b.quarantined_flushes or b.failed_lanes:
+        raise AssertionError("adversarial tenant flood: the victim was quarantined or failed lanes")
+    # the flood verifies only: no Fr product (K1 Fr runs in recombination)
+    _check_launches(launches, "adversarial tenant flood", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
+    MK.reset_launches()
+    return launches
+
+
+def run_adversarial(coal, walls: dict, seed: int) -> dict:
+    """Phase 11, under the default configuration: the differential
+    battery, then the tenant flood; returns the launches of both, summed."""
+    import gc
+
+    import torch
+
+    from charon_tpu_torch.core.autotune import KernelConfig
+
+    KernelConfig().apply()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"adversarial phase: the process's device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved; RSS {_rss_mib():.1f} MiB")
+    t0 = time.perf_counter()
+    diff = run_differential(seed)
+    flood = run_tenant_flood(coal, walls, seed)
+    log(f"adversarial phase: {time.perf_counter() - t0:.1f} s")
+    launches = {name: diff[name] + flood[name] for name in KERNELS}
+    _check_launches(launches, "adversarial", DEFAULT_KERNELS, INT8_KERNELS)
     return launches
 
 
@@ -2287,6 +2768,23 @@ def main(argv=None) -> int:
         help="write the node phase's cluster (testutil/compose.generate) into DIR and exit; prints no result line",
     )
     ap.add_argument(
+        "--adversarial", action="store_true",
+        help="build the kernels and run only phase 11 (the differential battery and the tenant flood), over a "
+             "plane and coalescer of its own, prewarmed at one verify bucket; prints no result line",
+    )
+    ap.add_argument(
+        "--int8", action="store_true",
+        help="build the kernels (or reuse a parent run's) and run only phase 5 and phase 7's int8 half (the "
+             "decode batteries, the warm-up, the duty and the profile under K4-K6); prints the duty's launches "
+             "and rows per launch as one JSON line and no result line",
+    )
+    ap.add_argument(
+        "--dkg", action="store_true",
+        help="build the kernels (or reuse a parent run's) and run only phase 9 (the DKG waves, the cluster "
+             "ceremony, the reshare rotation, the int8 share wave and the tuner's ceremony axes); prints its "
+             "launches as one JSON line and no result line",
+    )
+    ap.add_argument(
         "--ceremony", action="store_true",
         help="build the kernels and run only phase 9's cluster ceremony (dkg/ceremony.run_dkg on the card); "
              "prints no result line",
@@ -2313,8 +2811,8 @@ def main(argv=None) -> int:
     log(subprocess.run([MK.nvcc_path(), "--version"], check=True, capture_output=True, text=True).stdout.strip().splitlines()[-1])
 
     t0 = time.perf_counter()
-    # the node sweep reuses the libraries a parent run built (same sources)
-    for source, report in MK.build(force=not args.node_sweep).items():
+    # the phase processes reuse the libraries their parent run built (same sources)
+    for source, report in MK.build(force=not (args.node_sweep or args.dkg or args.int8)).items():
         log(f"nvcc {source}:")
         for line in report.splitlines():
             if "ptxas info" in line or "spill" in line:
@@ -2327,6 +2825,44 @@ def main(argv=None) -> int:
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(rc)
+    if args.int8:
+        from charon_tpu_torch.ops.blsops import BlsEngine
+
+        KernelConfig(mxu_mont=True).apply()
+        vals = host_setup(args.validators, args.seed, args.workers)
+        run_decode_batteries(BlsEngine(), decode_batteries(args.seed), "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
+        _, launches, rows, impl, batch, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
+        profile_device(impl, batch, "int8")
+        if args.python_decode:
+            run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
+        print(json.dumps({INT8_RESULT: {"launches": launches, "rows": rows}}), flush=True)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+    if args.dkg:
+        KernelConfig().apply()
+        launches = run_dkg(args.seed)
+        print(json.dumps({DKG_LAUNCHES: launches}), flush=True)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)  # as the node sweep: no thread of the engine's outlives the phase
+    if args.adversarial:
+        import asyncio
+
+        from charon_tpu_torch.core.cryptoplane import SlotCoalescer
+        from charon_tpu_torch.parallel import SlotCryptoPlane
+        from charon_tpu_torch.tbls.torch_impl import TorchImpl
+
+        walls: dict = {}
+        plane = SlotCryptoPlane(None, t=4)
+        plane.on_program = lambda fam, seconds, lanes: walls.setdefault(fam, []).append((seconds, lanes))
+        coal = SlotCoalescer(plane, impl=TorchImpl())
+        try:
+            stage("plane_prewarm", lambda: asyncio.run(coal.prewarm(PLANE_PREWARM_LANES, PLANE_PREWARM_RECOMBINE_LANES)), {})
+            log("adversarial launches:", json.dumps(run_adversarial(coal, walls, args.seed)))
+        finally:
+            coal.close()
+        return 0
     if args.ceremony:
         from charon_tpu_torch.ops.blsops import BlsEngine
 
@@ -2339,44 +2875,62 @@ def main(argv=None) -> int:
     results = check_kernels(args.seed)
     vals = host_setup(args.validators, args.seed, args.workers)
     run_tuner(sum(len(v[3]) for v in vals), persist=True)
-    # the node phase's cluster: create-cluster's host ceremony (FROST on the
-    # host, about a minute) runs in a process of its own from here on,
-    # beside phases 5-9, after the tuner whose profile node 0 loads
+    # phase 5 (with phase 7's int8 half), 9 and 10 run from here on in
+    # processes of their own, on the same card beside phases 6-8 of this
+    # one: every phase is host-bound
+    # and the card idle most of each (PERF.md section 5), so the script's
+    # wall is this process's phases. The node phase's cluster comes first
+    # from create-cluster's host ceremony (FROST on the host, about a
+    # minute), in a process of its own; the node phase waits for it, and for
+    # phase 4's profile, which node 0 loads.
     cluster_dir = str(MK.BUILD_DIR / f"node-cluster-{os.getpid()}")
     os.makedirs(cluster_dir)
-    cluster_log = open(os.path.join(cluster_dir, "make.log"), "w")
-    cluster_proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--make-node-cluster", cluster_dir,
-         "--node-slot", str(args.node_slot)], stdout=cluster_log, stderr=subprocess.STDOUT,
+    cluster_log_path = os.path.join(cluster_dir, "make.log")
+    with open(cluster_log_path, "w") as cluster_log:
+        cluster_proc = subprocess.Popen(
+            phase_command("--make-node-cluster", cluster_dir, "--node-slot", args.node_slot),
+            stdout=cluster_log, stderr=subprocess.STDOUT,
+        )
+    node_phase = PhaseProcess(
+        "node process", phase_command("--node-sweep", args.node_slot, "--seed", args.seed, "--node-cluster", cluster_dir),
+        NODE_LAUNCHES, after=cluster_proc, after_log=cluster_log_path,
     )
-    cluster_log.close()
+    dkg_phase = PhaseProcess("dkg process", phase_command("--dkg", "--seed", args.seed), DKG_LAUNCHES)
+    int8_phase = PhaseProcess(
+        "int8 process",
+        phase_command("--int8", "--seed", args.seed, "--validators", args.validators, "--workers",
+                      max(1, args.workers // 2), *(["--python-decode"] if args.python_decode else [])),
+        INT8_RESULT,
+    )
 
     try:
-        batteries = decode_batteries(args.seed)
-        KernelConfig(mxu_mont=True).apply()
         from charon_tpu_torch.ops.blsops import BlsEngine
 
-        engine = BlsEngine()
-        run_decode_batteries(engine, batteries, "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
-        _, int8_launches, int8_rows, impl, batch, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
-        profile_device(impl, batch, "int8")
-        if args.python_decode:
-            run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
         KernelConfig().apply()
-        run_decode_batteries(engine, batteries, "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
-        _, default_launches, default_rows, _, _, duty_sigs = run_duty(
+        run_decode_batteries(BlsEngine(), decode_batteries(args.seed), "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
+        _, default_launches, default_rows, impl, batch, duty_sigs = run_duty(
             vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
         )
         profile_device(impl, batch, "default")
-        plane_launches = run_plane(vals, duty_sigs, args.seed)
-        dkg_launches = run_dkg(args.seed)
-        if cluster_proc.wait() != 0:
-            raise AssertionError(f"the node cluster: create-cluster exited {cluster_proc.returncode}:\n"
-                                 + open(os.path.join(cluster_dir, "make.log")).read()[-3000:])
-        for line in open(os.path.join(cluster_dir, "make.log")):
-            print("  " + line, end="")
-        node_launches = run_node_process(args.seed, args.node_slot, cluster_dir)
+        # phase 8's coalescer stays open, caches warm, for phase 11
+        plane_launches, plane_coal, plane_walls = run_plane(vals, duty_sigs, args.seed)
+        try:
+            # phase 11 follows phases 5 and 7's int8 half, 9 and 10, with the card to itself
+            t_wait = time.perf_counter()
+            int8 = int8_phase.wait()
+            int8_launches = int8["launches"]
+            int8_rows = {name: {int(r): n for r, n in counts.items()} for name, counts in int8["rows"].items()}
+            dkg_launches = dkg_phase.wait()
+            node_launches = node_phase.wait()
+            log(f"phases 5, 9 and 10 (processes of their own): waited {time.perf_counter() - t_wait:.1f} s "
+                "after phase 8")
+            adversarial_launches = run_adversarial(plane_coal, plane_walls, args.seed)
+        finally:
+            plane_coal.close()
     finally:
+        int8_phase.stop()
+        node_phase.stop()
+        dkg_phase.stop()
         if cluster_proc.poll() is None:
             cluster_proc.kill()
             cluster_proc.wait()
@@ -2390,7 +2944,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": f"charon_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[name], **results[name], "library_ms": None,
             "plane_launches": plane_launches[name], "dkg_launches": dkg_launches[name],
-            "node_launches": node_launches[name], "status": "ported",
+            "node_launches": node_launches[name], "adversarial_launches": adversarial_launches[name],
+            "status": "ported",
         })
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(json.dumps({

@@ -437,7 +437,7 @@ def test_clock_step_does_not_collapse_armed_window():
     """The wall -> monotonic offset is snapshotted once a window, so a host
     clock step between two submissions of one window neither shrinks nor
     stretches the armed flush."""
-    from charon_tpu.testutil.chaos import SkewedClock
+    from charon_tpu_torch.testutil.chaos import SkewedClock
 
     coal = coalescer(FakePlane(T), window=0.5, window_min=0.001)
 

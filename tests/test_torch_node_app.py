@@ -18,8 +18,10 @@ held against the JAX package.
   * The node binary: `python -m charon_tpu_torch.cmd.cli` and
     `charon_tpu_torch.app.run` import neither jax, nor `charon_tpu`, nor
     torch; `build_node(Config(use_tpu_tbls=True))` without a card raises
-    and installs no host backend; a fault-injection spec raises
-    NotImplementedError naming ROADMAP item 13f.
+    and installs no host backend; `cli run --fault-injection` (or
+    CHARON_TPU_FAULT_INJECTION) builds the chaos wrappers around the
+    node's beacon, p2p node and tbls backend, and an injected backend
+    fault reaches the first tbls caller.
   * Parity: both packages' VapiRouters answer the same `/eth/v1/...`
     requests over the same duty data with byte-equal JSON; a lock written
     by the port's `create-cluster` verifies under the reference's
@@ -176,27 +178,76 @@ def test_build_node_on_the_card_raises_without_one(tmp_path):
     assert port_tbls._current is sentinel
 
 
-def test_fault_injection_raises_until_the_chaos_harness(tmp_path, monkeypatch):
-    """Without a spec the fault-injection plane constructs nothing; with
-    one (the run flag or CHARON_TPU_FAULT_INJECTION), build_node and
-    `cli run` raise NotImplementedError naming ROADMAP item 13f: the
-    injectors of testutil/chaos.py are not ported yet."""
+def test_fault_injection_inert_without_a_spec(tmp_path, monkeypatch):
+    """Without a spec the fault-injection plane constructs nothing: the
+    node's backend and beacon are the plain ones."""
     from charon_tpu_torch.app import faultinject
     from charon_tpu_torch.app.run import Config, build_node
     from charon_tpu_torch.cmd.cli import main as cli
+    from charon_tpu_torch.testutil import chaos
 
     out = tmp_path / "c"
     _create_cluster(cli, out, nodes=2, threshold=2)
     monkeypatch.delenv(faultinject.ENV_VAR, raising=False)
-    assert not faultinject.init_from_env() and not faultinject.active()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13f"):
-        asyncio.run(build_node(Config(data_dir=str(out / "node0"), node_index=0, simnet=True, use_tpu_tbls=False,
-                                      fault_injection="seed=1,drop=0.1")))
-    monkeypatch.setenv(faultinject.ENV_VAR, "seed=1")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13f"):
-        asyncio.run(build_node(Config(data_dir=str(out / "node0"), node_index=0, simnet=True, use_tpu_tbls=False)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13f"):
-        cli(["run", "--data-dir", str(out / "node0"), "--no-tpu", "--simnet", "--fault-injection", "seed=1"])
+    faultinject.uninstall()
+    node = asyncio.run(build_node(Config(data_dir=str(out / "node0"), node_index=0, simnet=True, use_tpu_tbls=False,
+                                         flight_capacity=0)))
+    assert not faultinject.active()
+    assert not isinstance(port_tbls.get_implementation(), chaos.FlakyBackend)
+    assert not isinstance(node.beacon, chaos.ChaosBeacon)
+
+
+@pytest.mark.parametrize("via", ["flag", "env"])
+def test_fault_injection_builds_the_wrappers_and_the_first_tbls_call_raises(tmp_path, monkeypatch, via):
+    """`cli run --fault-injection seed=1,crypto_fail_after=0` (or the same
+    spec in CHARON_TPU_FAULT_INJECTION) builds the node on the port's
+    fault plane: a FlakyBackend around the host tbls backend and a
+    ChaosBeacon around the beacon. With crypto_fail_after=0 the first tbls
+    call raises the injected fault to its caller; there is no ladder to
+    hide it, and the registry keeps the wrapper."""
+    from charon_tpu_torch.app import faultinject
+    from charon_tpu_torch.app.run import build_node
+    from charon_tpu_torch.cmd.cli import build_parser, run_config
+    from charon_tpu_torch.cmd.cli import main as cli
+    from charon_tpu_torch.tbls.native_impl import NativeImpl
+    from charon_tpu_torch.tbls.python_impl import PythonImpl
+    from charon_tpu_torch.testutil import chaos
+
+    spec = "seed=1,crypto_fail_after=0"
+    out = tmp_path / "c"
+    _create_cluster(cli, out, nodes=2, threshold=2)
+    monkeypatch.delenv(faultinject.ENV_VAR, raising=False)
+    faultinject.uninstall()
+    argv = ["run", "--data-dir", str(out / "node0"), "--no-tpu", "--simnet"]
+    if via == "flag":
+        argv += ["--fault-injection", spec]
+    else:
+        monkeypatch.setenv(faultinject.ENV_VAR, spec)
+    rc, config = run_config(build_parser().parse_args(argv))
+    assert rc == 0
+    try:
+        node = asyncio.run(build_node(config))
+        plane = faultinject.plane()
+        assert plane is not None and plane.config == chaos.config_from_spec(spec)
+        impl = port_tbls.get_implementation()
+        assert isinstance(impl, chaos.FlakyBackend) and isinstance(impl._inner, (NativeImpl, PythonImpl))
+        assert isinstance(node.beacon, chaos.ChaosBeacon)
+        with pytest.raises(RuntimeError, match="chaos: crypto backend lost") as err:
+            port_tbls.sign(b"\x01" * 32, b"m" * 32)
+        assert not isinstance(err.value, port_tbls.TblsError)
+        assert impl.injected_failures == 1 and port_tbls.get_implementation() is impl
+    finally:
+        faultinject.uninstall()
+
+
+def test_fault_injection_rejects_a_typo_before_the_node_starts(tmp_path, capsys):
+    """A spec with an unknown key exits 2 with the chaos module's
+    diagnostic, before anything is built."""
+    from charon_tpu_torch.app import faultinject
+    from charon_tpu_torch.cmd.cli import main as cli
+
+    assert cli(["run", "--data-dir", str(tmp_path), "--no-tpu", "--simnet", "--fault-injection", "seed=1,dorp=0.1"]) == 2
+    assert "unknown fault-injection key 'dorp'" in capsys.readouterr().err
     assert not faultinject.active()
 
 

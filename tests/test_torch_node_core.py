@@ -50,8 +50,9 @@ def reference_cases(
     `drop_imports` names port modules the port does not have yet: their
     module-level `from ... import` lines become blank, and the cases that
     use them must stay out of `export_cases`. `test_modules` names other
-    reference test modules it imports from: each import is rebound to
-    that module's rebound copy, `port_<name>`, made first. The module
+    reference test modules it imports from (as `test_x` or `tests.test_x`):
+    each import is rebound to that module's rebound copy, `port_<name>`,
+    made first. The module
     keeps the reference file's path, so tracebacks and golden files
     resolve there."""
     path = _TESTS / f"{name}.py"
@@ -59,7 +60,7 @@ def reference_cases(
     for mod in test_modules:
         if f"port_{mod}" not in sys.modules:
             reference_cases(mod)
-        src = re.sub(rf"(?m)^from {mod} import ", f"from port_{mod} import ", src)
+        src = re.sub(rf"(?m)^from (tests\.)?{mod} import ", f"from port_{mod} import ", src)
     for mod in drop_imports:
         src, dropped = re.subn(rf"(?m)^from {re.escape(mod)} import [^\n(]*$", "", src)
         if dropped != 1:

@@ -13,9 +13,9 @@ and the node's duty workflow end to end, held against the JAX package.
     crypto/shamir): every node's SigAgg, ValidatorAPI and Eth2Verifier
     holds its TenantPlane, the duties complete with no inline tbls call,
     and the service's flushes carry every node's lanes.
-  * The registry: the unported build_cluster option (chaos) raises
-    NotImplementedError (protocol_prefs and flightrec, ported, build),
-    and get_implementation() raises without a card.
+  * The registry: build_cluster's options that later slices ported build
+    (chaos, protocol_prefs, flightrec), and get_implementation() raises
+    without a card.
     Clusters here run on the port's host backends (NativeImpl where
     native/libcharon_native.so loads, else PythonImpl).
   * Signed QBFT: a cluster whose messages are k1-signed over the port's
@@ -299,11 +299,12 @@ def test_mem_transport_delivers_to_every_peer_at_once():
 
 @pytest.mark.parametrize(
     "option",
-    [dict(chaos=object()), dict(protocol_prefs=[["qbft/2.0.0"]] * 4), dict(flightrec=True)],
+    [dict(chaos="seed=1"), dict(protocol_prefs=[["qbft/2.0.0"]] * 4), dict(flightrec=True)],
     ids=["chaos", "protocol_prefs", "flightrec"],
 )
 def test_unported_build_cluster_options_raise(option):
-    """chaos raises, naming its ROADMAP item; protocol_prefs
+    """chaos (testutil/chaos.py, ported with the chaos harness) builds
+    every node on one fault plane and the cluster attests; protocol_prefs
     (core/priority.py, ported with the wire) builds every node on one
     priority fabric; flightrec (app/flightrec.py, ported with
     observability) gives every node its own recorder, which
@@ -329,8 +330,27 @@ def test_unported_build_cluster_options_raise(option):
             merged = flightrec.merge_jsonl(paths)
         assert [(e["node"], e["kind"]) for e in merged] == [("node3", "start")]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        port_simnet.build_cluster(n=4, t=3, **option)
+    from charon_tpu_torch.testutil import chaos
+
+    cluster = port_simnet.build_cluster(
+        n=4, t=3, num_validators=1, slot_duration=0.4, chaos=chaos.config_from_spec(option["chaos"])
+    )
+    assert isinstance(cluster.beacon, chaos.ChaosBeacon) and isinstance(cluster.partitioner, chaos.Partitioner)
+    assert isinstance(cluster.chaos_transport, chaos.ChaosParSigTransport)
+
+    async def attest():
+        tasks = [asyncio.create_task(node.scheduler.run()) for node in cluster.nodes]
+        try:
+            while not cluster.beacon.attestations:
+                await asyncio.sleep(0.05)
+        finally:
+            for node in cluster.nodes:
+                node.scheduler.stop()
+            for task in tasks:
+                task.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+    asyncio.run(asyncio.wait_for(attest(), 60.0))
 
 
 def test_qbft_message_keys_raise_until_k1util():

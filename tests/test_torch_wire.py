@@ -4,10 +4,7 @@ the JAX package.
 
   * The JAX package's tests/test_wire_codec.py, test_priority.py,
     test_p2p.py, test_relay_fallback.py and test_cryptosvc_remote.py run
-    on the port's modules (`reference_cases`), but
-    test_cryptosvc_remote's `test_wall_clock_jump_does_not_expire_heartbeat`,
-    which needs testutil/chaos.py (ROADMAP item 13f); so do
-    test_golden's `test_wire_envelope_golden`, test_spec_blocks'
+    on the port's modules (`reference_cases`); so do test_golden's `test_wire_envelope_golden`, test_spec_blocks'
     `test_proposal_wire_codec_roundtrip` and test_version_codec_guard but
     `test_peerinfo_flags_incompatible_peer` (bound with the observability
     cases in tests/test_torch_obs.py).
@@ -81,11 +78,7 @@ WIRE_CODEC_CASES = export_cases(reference_cases("test_wire_codec"), globals())
 PRIORITY_CASES = export_cases(reference_cases("test_priority"), globals())
 P2P_CASES = export_cases(reference_cases("test_p2p"), globals())
 RELAY_CASES = export_cases(reference_cases("test_relay_fallback"), globals())
-REMOTE_CASES = export_cases(
-    reference_cases("test_cryptosvc_remote", drop_imports=("charon_tpu_torch.testutil.chaos",)),
-    globals(),
-    skip=("test_wall_clock_jump_does_not_expire_heartbeat",),
-)
+REMOTE_CASES = export_cases(reference_cases("test_cryptosvc_remote"), globals())
 GOLDEN_CASES = export_cases(reference_cases("test_golden"), globals(), only=("test_wire_envelope_golden",))
 SPEC_CASES = export_cases(reference_cases("test_spec_blocks"), globals(), only=("test_proposal_wire_codec_roundtrip",))
 VERSION_CASES = export_cases(
@@ -110,7 +103,7 @@ def test_reference_cases_run_on_the_port():
     assert [len(c) for c in (
         WIRE_CODEC_CASES, PRIORITY_CASES, P2P_CASES, RELAY_CASES, REMOTE_CASES, GOLDEN_CASES, SPEC_CASES,
         VERSION_CASES,
-    )] == [23, 6, 5, 2, 17, 1, 1, 5]
+    )] == [23, 6, 5, 2, 18, 1, 1, 5]
     for name in REBOUND:
         case = globals()[name]
         if name.startswith(("test_", "Test")):
