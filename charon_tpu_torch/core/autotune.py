@@ -6,7 +6,8 @@ The port of charon_tpu/core/autotune.py.
   * `KernelConfig` is the one source of truth for kernel routing.
     `apply()` pushes it into the port's call-time dispatch flags
     (`ops/msm.set_msm`, `set_ceremony_straus`, `set_ceremony_window`,
-    `ops/limb.set_mxu`). The port routes at call time, so a flip takes
+    `ops/limb.set_mxu`, `ops/fptower.set_fp2_fusion`). The port routes at
+    call time, so a flip takes
     effect on the next call; there are no compiled-kernel
     caches to drop. An axis the port has no route for yet accepts only its
     default, and `apply()` raises `UnroutableConfigError` for any other
@@ -15,7 +16,8 @@ The port of charon_tpu/core/autotune.py.
     the ops never read the environment.
 
   * `resolve()` is the startup tuner. It micro-benches each applicable
-    candidate axis on the card at the lane count the caller reads from its
+    boot axis (`boot_candidates()`; fp2_fusion is benched only on request)
+    on the card at the lane count the caller reads from its
     duty, keeps an axis's default unless another value wins by more than
     the spread between repeated runs, and persists the profile (JSON,
     schema-versioned, keyed by platform, torch and CUDA versions, the
@@ -129,7 +131,7 @@ class KernelConfig:
 
     msm: bool = True  # Straus joint windowed mul in threshold recombine
     mxu_mont: bool = False  # int8 tensor-core Montgomery products (K4-K6)
-    fp2_fusion: bool = True  # fused Fp2 kernels (the port's one Fp2 path)
+    fp2_fusion: bool = True  # fused Fp2 kernels K2/K3 (K5/K6), else the unfused route
     pallas: bool | None = None  # hand-written kernels (the port's one path)
     ceremony_straus: bool = True  # Straus vs per-lane in commitment eval
     ceremony_msm_w8: bool = True  # Pippenger window 8 (else 4) in g1_msm
@@ -144,7 +146,7 @@ class KernelConfig:
     )
     # axis -> the values the port can route today; any other raises
     ROUTABLE = {
-        "fp2_fusion": (True,),
+        "fp2_fusion": (True, False),
         "pallas": (None, True),
         "ceremony_straus": (True, False),
         "ceremony_msm_w8": (True, False),
@@ -158,13 +160,14 @@ class KernelConfig:
         bad = {f: getattr(self, f) for f, ok in self.ROUTABLE.items() if getattr(self, f) not in ok}
         if bad:
             raise UnroutableConfigError(f"the port has no kernel route for {bad}")
-        from charon_tpu_torch.ops import limb
+        from charon_tpu_torch.ops import fptower, limb
         from charon_tpu_torch.ops import msm as MSM
 
         MSM.set_msm(self.msm)
         MSM.set_ceremony_straus(self.ceremony_straus)
         MSM.set_ceremony_window(8 if self.ceremony_msm_w8 else 4)
         limb.set_mxu(self.mxu_mont)
+        fptower.set_fp2_fusion(self.fp2_fusion)
         return True
 
     def as_dict(self) -> dict:
@@ -183,6 +186,10 @@ class Candidate:
     applicable: Callable[[], bool]
     builder: Callable[[int, torch.device], Callable[[], None]]
     values: tuple = (True, False)
+    # benched by a boot's resolve() and prewarmed by aot_prewarm() when the
+    # caller names no candidates; an axis that is not is benched only on
+    # request (candidates={field: ...}) and keeps its default otherwise
+    at_boot: bool = True
 
 
 @dataclass(frozen=True)
@@ -275,6 +282,25 @@ def _ladder_step_builder(lanes: int, device: torch.device) -> Callable[[], None]
     return run
 
 
+def _fp2_batch_builder(lanes: int, device: torch.device) -> Callable[[], None]:
+    """One stacked Fp2 level (two muls and two squares) at `lanes`: the
+    level the fp2_fusion axis routes (fptower.fp2_batch: the fused K2/K3
+    kernels, or the unfused route's stacked normalizes around one K1
+    product), as the reference's _fp2_batch_builder."""
+    from charon_tpu_torch.ops import blsops, fptower, limb
+
+    n = blsops.bucket_lanes(lanes)
+    a = limb.to_device(limb.pack_mont_host(limb.FP, [i + 1 for i in range(n)]), device)
+    e = (a, a)
+
+    def run() -> None:
+        with torch.inference_mode():
+            fptower.fp2_batch(limb.FP, [("mul", e, e), ("sqr", e), ("mul", e, e), ("sqr", e)])
+        _sync(device)
+
+    return run
+
+
 def _ceremony_eval_builder(lanes: int, device: torch.device, t: int = 3) -> Callable[[], None]:
     """DKG commitment-polynomial evaluation wave: the program the
     ceremony_straus axis routes (blsops.commitment_eval: Straus joint
@@ -315,19 +341,17 @@ def _ceremony_msm_builder(lanes: int, device: torch.device) -> Callable[[], None
     return run
 
 
-def _no_route(lanes: int, device: torch.device) -> Callable[[], None]:
-    raise PlaneConfigError("the port has no kernel route for this axis yet")
-
-
 def _always() -> bool:
     return True
 
 
-def _never() -> bool:
-    return False
-
-
 CANDIDATES: dict[str, Candidate] = {}
+
+
+def boot_candidates() -> dict[str, Candidate]:
+    """The axes a boot benches and prewarms: CANDIDATES less those
+    registered with at_boot=False."""
+    return {f: c for f, c in CANDIDATES.items() if c.at_boot}
 
 
 def register_candidate(cand: Candidate) -> None:
@@ -352,12 +376,16 @@ register_candidate(Candidate(
     applicable=_always,
     builder=_ladder_step_builder,
 ))
-# The unfused Fp2 path was not ported: the axis has no route.
+# Applicable wherever the kernels run: on the card always; on the CPU the
+# two routes' plain versions stand in, as for mxu_mont. Not benched at a
+# boot: on the H100 the fused level won at every size measured, by 5-13x
+# (PERF.md section 6), so a boot keeps fusion on without paying the bench.
 register_candidate(Candidate(
     field="fp2_fusion",
-    doc="fused Fp2 kernels: the port's one Fp2 path",
-    applicable=_never,
-    builder=_no_route,
+    doc="fused Fp2 kernels (K2/K3) vs the unfused stacked level around K1",
+    applicable=_always,
+    builder=_fp2_batch_builder,
+    at_boot=False,
 ))
 register_candidate(Candidate(
     field="ceremony_straus",
@@ -414,7 +442,7 @@ def micro_bench(
     choices: dict = {}
     timings: dict = {}
     bench_runs = 0
-    for field, cand in (candidates or CANDIDATES).items():
+    for field, cand in (candidates or boot_candidates()).items():
         if not cand.applicable():
             choices[field] = (getattr(cfg, field), "inapplicable")
             continue
@@ -464,7 +492,7 @@ def aot_prewarm(
     if dev.type == "cuda":
         MK.build()
     report = []
-    for field, cand in (candidates or CANDIDATES).items():
+    for field, cand in (candidates or boot_candidates()).items():
         if not cand.applicable():
             continue
         for n in lanes:

@@ -194,7 +194,7 @@ def _gen_table_g1(ctx: ModCtx, nbits: int, window: int, device: torch.device):
             entry = g1_add(entry, base)
         for _ in range(window):
             base = g1_add(base, base)
-    return map_point(lambda a: a.reshape(n_win, 1 << window, -1), C.g1_pack(ctx, flat, device))
+    return limb.settled(map_point(lambda a: a.reshape(n_win, 1 << window, -1), C.g1_pack(ctx, flat, device)))
 
 
 def g1_gen_mul(ctx: ModCtx, fr_ctx: ModCtx, scalars, nbits: int = 255, window: int = 4):

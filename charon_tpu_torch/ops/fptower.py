@@ -12,7 +12,10 @@ Every function takes the Fp ModCtx first. Independent operations of one
 dependency level are stacked into one call: fp2 muls and squares of a level
 go to one launch each of the fused kernels K2/K3 (ops/mont_kernels.py; K5/K6
 with the int8 route on), and adds/subs to one stacked normalize
-(limb.addsub_mod_many).
+(limb.addsub_mod_many). With fusion off (set_fp2_fusion, owned by
+core/autotune.KernelConfig's fp2_fusion axis) a level takes the unfused
+route instead: its Karatsuba sums, ONE stacked Montgomery product (K1, or
+K4 with the int8 route on) and two stacked post levels.
 
 Multiplication counts (in Fp Montgomery products): fp2_mul 3 (Karatsuba),
 fp2_sqr 2, fp6_mul 18, fp12_mul 54, fp12_cyclotomic_sqr 18 (Granger-Scott).
@@ -173,6 +176,18 @@ def _stacked(operands, width: int):
     return [torch.stack(parts[k::width]) for k in range(width)]
 
 
+# The fused route (K2/K3, K5/K6) is the default. Turning fusion off keeps
+# the Montgomery product kernel and runs the Fp2 formulas around it as
+# stacked limb normalizes, the reference's unfused route. The flag is
+# owned by core/autotune.KernelConfig (the fp2_fusion tuner axis).
+_FP2_FUSION = True
+
+
+def set_fp2_fusion(mode: bool) -> None:
+    global _FP2_FUSION
+    _FP2_FUSION = mode
+
+
 def fp2_batch(ctx, ops):
     """Execute independent fp2 operations, stacked by kind:
 
@@ -182,7 +197,10 @@ def fp2_batch(ctx, ops):
 
     With the int8 route on (limb.set_mxu) muls go to K5 and squares to K6,
     and limb.mont_mul takes mul_fp to K4. Each kind runs as ONE launch over
-    a new leading stack axis. Returns the fp2 results in order."""
+    a new leading stack axis. With fusion off, the whole level takes the
+    unfused route (_fp2_batch_unfused). Returns the fp2 results in order."""
+    if not _FP2_FUSION:
+        return _fp2_batch_unfused(ctx, ops)
     out = [None] * len(ops)
     muls = [(i, op) for i, op in enumerate(ops) if op[0] == "mul"]
     sqrs = [(i, op) for i, op in enumerate(ops) if op[0] == "sqr"]
@@ -207,6 +225,71 @@ def fp2_batch(ctx, ops):
         prods = limb.mont_mul(ctx, xs, ys)
         for j, (i, _) in enumerate(mulfps):
             out[i] = (prods[2 * j], prods[2 * j + 1])
+    return out
+
+
+def _fp2_batch_unfused(ctx, ops):
+    """fp2_batch on the Montgomery product alone, in the reference's order:
+    every Karatsuba sum and squaring sum and difference in ONE stacked
+    normalize, ONE stacked limb.mont_mul over the level's base products
+    (K1, or K4 with the int8 route on), then post level A (v0 + v1 of each
+    mul) and post level B (the Karatsuba differences and the squares'
+    doubles), one stacked normalize each."""
+    prep_adds, prep_subs = [], []
+    for op in ops:
+        if op[0] == "mul":
+            _, a, b = op
+            prep_adds += [(a[0], a[1]), (b[0], b[1])]
+        elif op[0] == "sqr":
+            _, a = op
+            prep_adds.append((a[0], a[1]))
+            prep_subs.append((a[0], a[1]))
+        elif op[0] != "mul_fp":
+            raise ValueError("unknown fp2_batch op")
+    ra, rs = limb.addsub_mod_many(ctx, prep_adds, prep_subs)
+    ra, rs = iter(ra), iter(rs)
+
+    xs, ys = [], []
+    for op in ops:
+        if op[0] == "mul":
+            _, a, b = op
+            xs += [a[0], a[1], next(ra)]
+            ys += [b[0], b[1], next(ra)]
+        elif op[0] == "sqr":
+            _, a = op
+            xs += [next(ra), a[0]]
+            ys += [next(rs), a[1]]
+        else:
+            _, a, s = op
+            xs += [a[0], a[1]]
+            ys += [s, s]
+    # base products: mul (a0 b0, a1 b1, (a0 + a1)(b0 + b1)), sqr
+    # ((a0 + a1)(a0 - a1), a0 a1), mul_fp (a0 s, a1 s)
+    parts = torch.broadcast_tensors(*xs, *ys)
+    prods = limb.mont_mul(ctx, torch.stack(parts[: len(xs)]), torch.stack(parts[len(xs) :]))
+
+    starts, i = [], 0
+    for op in ops:
+        starts.append(i)
+        i += 3 if op[0] == "mul" else 2
+    v01 = iter(limb.add_mod_many(ctx, [(prods[i], prods[i + 1]) for op, i in zip(ops, starts) if op[0] == "mul"]))
+    b_adds, b_subs = [], []
+    for op, i in zip(ops, starts):
+        if op[0] == "mul":
+            b_subs += [(prods[i], prods[i + 1]), (prods[i + 2], next(v01))]
+        elif op[0] == "sqr":
+            b_adds.append((prods[i + 1], prods[i + 1]))
+    rb_add, rb_sub = limb.addsub_mod_many(ctx, b_adds, b_subs)
+    rb_add, rb_sub = iter(rb_add), iter(rb_sub)
+
+    out = []
+    for op, i in zip(ops, starts):
+        if op[0] == "mul":
+            out.append((next(rb_sub), next(rb_sub)))
+        elif op[0] == "sqr":
+            out.append((prods[i], next(rb_add)))
+        else:
+            out.append((prods[i], prods[i + 1]))
     return out
 
 

@@ -111,7 +111,19 @@ def _const_tensor(ctx: ModCtx, what: str, device: torch.device) -> torch.Tensor:
         arr = int_to_limbs(1, n, ctx.limb_bits)
     else:
         raise ValueError(what)
-    return torch.as_tensor(arr, dtype=DTYPE, device=device)
+    return settled(torch.as_tensor(arr, dtype=DTYPE, device=device))
+
+
+def settled(tree):
+    """A cached device constant (a tensor or a tuple of them), complete
+    before it is returned: the plane's shards run on streams of their own,
+    and a constant built on one shard's stream is read on the others'."""
+    leaf = tree
+    while isinstance(leaf, tuple):
+        leaf = leaf[0]
+    if leaf.is_cuda:
+        torch.cuda.current_stream(leaf.device).synchronize()
+    return tree
 
 
 def _const_np(ctx: ModCtx, what: str) -> np.ndarray:

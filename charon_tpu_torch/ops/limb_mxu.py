@@ -114,7 +114,7 @@ def kernel_tables_np(ctx: ModCtx) -> np.ndarray:
 def device_tables(ctx: ModCtx, device: torch.device) -> torch.Tensor:
     """kernel_tables_np on `device`, built once per (context, device): the
     kernels read it from device memory into shared memory."""
-    return torch.as_tensor(kernel_tables_np(ctx), device=device)
+    return limb.settled(torch.as_tensor(kernel_tables_np(ctx), device=device))
 
 
 def split_halves(x):

@@ -173,20 +173,27 @@ def sm_count(device: torch.device) -> int:
 
 # Launches per kernel since the last reset_launches(), per kernel the
 # launches at each row count ({rows: launches}), and the operands _aligned
-# copied because they started off a 16-byte word.
+# copied because they started off a 16-byte word. The plane's shards launch
+# from threads of their own, so every update takes _COUNT_LOCK.
 LAUNCHES = {
     "mont_mul_fp": 0, "mont_mul_fr": 0, "fp2_mul": 0, "fp2_sqr": 0,
     "mont_mul_mxu_fp": 0, "mont_mul_mxu_fr": 0, "fp2_mul_mxu": 0, "fp2_sqr_mxu": 0,
 }
 ROWS: dict[str, dict[int, int]] = {name: {} for name in LAUNCHES}
 ALIGN_COPIES = dict.fromkeys(LAUNCHES, 0)
+_COUNT_LOCK = threading.Lock()
+# A thread's `hook`, if set, runs after each of its launches: the slot
+# plane's shards on a card pass their turn at the host there
+# (parallel/mesh.py).
+AFTER_LAUNCH = threading.local()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        ROWS[name].clear()
-        ALIGN_COPIES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+            ROWS[name].clear()
+            ALIGN_COPIES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +310,12 @@ def _launch(source: str, fn: str, ctx: ModCtx, kernel: str, tensors, tables: boo
     if rc != 0:
         msg = getattr(lib, f"charon_{Path(source).stem}_error_string")(rc)
         raise RuntimeError(f"{kernel} launch failed: {msg.decode()} ({rc})")
-    LAUNCHES[kernel] += 1
-    ROWS[kernel][rows] = ROWS[kernel].get(rows, 0) + 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
+        ROWS[kernel][rows] = ROWS[kernel].get(rows, 0) + 1
+    hook = getattr(AFTER_LAUNCH, "hook", None)
+    if hook is not None:
+        hook()
 
 
 def _aligned(kernel: str, tensors):
@@ -315,7 +326,8 @@ def _aligned(kernel: str, tensors):
         x = x.contiguous()
         if x.data_ptr() % 16:
             x = x.clone()
-            ALIGN_COPIES[kernel] += 1
+            with _COUNT_LOCK:
+                ALIGN_COPIES[kernel] += 1
         out.append(x)
     return out
 

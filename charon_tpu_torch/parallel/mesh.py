@@ -3,10 +3,18 @@
 The port of charon_tpu/parallel/mesh.py. The two parallel axes of a slot,
 the validators and the t shares of each, are the tensor dimensions
 [V, t]. V is split over the plane's shards, one torch device each; t
-stays local (the Lagrange reduction is a t-term point fold). Each shard's
-slice of V runs on its own device in turn, and the only reduction across
-shards, the reference's scalar psum of the validity counts, is a sum of
-the per-shard counts on the host. One H100 is one shard.
+stays local (the Lagrange reduction is a t-term point fold). On two or
+more shards a program runs every shard's slice at once, as the reference's
+shard_map does: one host thread and one CUDA stream a shard, both owned by
+the plane. Every torch op releases the GIL, and threads that all want it
+back hand it over at every op, which cost a card's shards several times
+one shard's wall each (PERF.md section 6); so on a card the shards'
+threads take turns at the host instead, in slices of a few milliseconds
+ended at a kernel launch (_Turns), while each shard's queued work runs on
+its stream. The only reduction across shards, the reference's scalar psum
+of the validity counts, is a sum of the per-shard counts on the host,
+within each host's shards first on a make_mesh_2d layout. A one-shard
+plane runs in the calling thread on its stream.
 
 One call per slot does every validator's work: verify each partial
 signature against its pubshare, recombine the group signatures, verify
@@ -17,7 +25,10 @@ through the same ops as BlsEngine.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import random
+import threading
 import time
 
 import numpy as np
@@ -27,6 +38,7 @@ from charon_tpu_torch.ops import blsops
 from charon_tpu_torch.ops import curve as C
 from charon_tpu_torch.ops import decompress as DEC
 from charon_tpu_torch.ops import limb
+from charon_tpu_torch.ops import mont_kernels as MK
 from charon_tpu_torch.ops import msm as MSM
 from charon_tpu_torch.ops import pairing as DP
 from charon_tpu_torch.ops import sswu as SSWU
@@ -61,19 +73,161 @@ def _dedupe_buckets(lanes, bucket_fn):
 
 
 def make_mesh(devices=None) -> list[torch.device]:
-    """The plane's shards, one torch device each; None means the card
-    (cuda:0). A CUDA entry needs a card: pass "cpu" entries to run on the
-    CPU."""
-    devices = ["cuda:0"] if devices is None else list(devices)
+    """The plane's shards, one torch device each; None means every visible
+    card (as the reference's jax.devices()). A CUDA entry needs a card:
+    pass "cpu" entries to run on the CPU."""
+    if devices is None:
+        # with no card, cuda:0 stands in so that resolving it raises
+        devices = [f"cuda:{i}" for i in range(max(1, torch.cuda.device_count()))]
+    devices = list(devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return [blsops._resolve_device(d) for d in devices]
+
+
+def make_mesh_2d(n_hosts: int, devices=None) -> list[list[torch.device]]:
+    """The reference's multi-host layout: the devices (None: every visible
+    card) row by row as n_hosts rows, a host's devices a row.
+    SlotCryptoPlane splits V over the devices in row order and sums the
+    validity count within each host's shards before it sums over hosts."""
+    devices = make_mesh(devices)
+    if len(devices) % n_hosts:
+        raise ValueError(f"{len(devices)} devices do not split over {n_hosts} hosts")
+    per = len(devices) // n_hosts
+    return [devices[h * per : (h + 1) * per] for h in range(n_hosts)]
+
+
+def _layout(mesh) -> tuple[list[torch.device], int]:
+    """(the shards in row order, the hosts) of a make_mesh list, a
+    make_mesh_2d layout or None."""
+    if mesh is not None and len(mesh) and all(isinstance(row, (list, tuple)) for row in mesh):
+        if len({len(row) for row in mesh}) != 1:
+            raise ValueError("every host of a 2-D mesh needs the same number of devices")
+        return make_mesh([d for row in mesh for d in row]), len(mesh)
+    return make_mesh(mesh), 1
 
 
 def _first_leaf(tree):
     while isinstance(tree, tuple):
         tree = tree[0]
     return tree
+
+
+def _leaves(tree) -> list:
+    out = []
+    map_point(out.append, tree)
+    return out
+
+
+class _Turns:
+    """The host, taken in turns by the shards' threads of one plane on a
+    card, first come first served: a thread holds its turn while it issues
+    its shard's ops and passes it on after a kernel launch once it has held
+    it SLICE seconds and another thread waits. Only the holder wants the
+    GIL then, so it gets it back from each op at once, and every shard's
+    queued work runs on its own stream meanwhile."""
+
+    SLICE = 0.005
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._waiting: collections.deque[threading.Event] = collections.deque()
+        self._busy = False
+        self._since = 0.0
+
+    def enter(self) -> None:
+        with self._lock:
+            if not self._busy:
+                self._busy = True
+                self._since = time.perf_counter()
+                return
+            handed = threading.Event()
+            self._waiting.append(handed)
+        handed.wait()
+        self._since = time.perf_counter()
+
+    def leave(self) -> None:
+        with self._lock:
+            if self._waiting:
+                self._waiting.popleft().set()  # the turn goes straight to the next
+            else:
+                self._busy = False
+
+    def pass_on(self) -> None:
+        if self._waiting and time.perf_counter() - self._since >= self.SLICE:
+            self.leave()
+            self.enter()
+
+
+class _Shards:
+    """The plane's workers: one host thread a shard (a one-worker pool,
+    started at the first program) and, on a card, one CUDA stream a shard.
+    A shard's work runs on its own thread, so two programs in flight on one
+    plane queue up per shard and never mix their slices. The threads hold
+    no reference to the plane: close() ends them, and so does dropping the
+    plane."""
+
+    def __init__(self, mesh: list[torch.device]):
+        self.mesh = mesh
+        self._pools = [
+            concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix=f"plane-shard{k}") for k in range(len(mesh))
+        ]
+        self._streams = None
+        self._lock = threading.Lock()
+        self.turns = _Turns()
+
+    def streams(self) -> list:
+        """A stream of its own for each shard on a card (None for a CPU
+        shard), made at the first program. Raises if one cannot be had."""
+        with self._lock:
+            if self._streams is None:
+                self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in self.mesh]
+            return self._streams
+
+    def submit(self, k: int, fn, *args) -> concurrent.futures.Future:
+        return self._pools[k].submit(fn, *args)
+
+    def close(self) -> None:
+        for pool in self._pools:
+            pool.shutdown(wait=True)
+
+
+def _event(timing: bool):
+    return torch.cuda.Event(enable_timing=timing)
+
+
+def _run_shard(body, part, stream, ready, reduce, timing: bool, turns: _Turns):
+    """One shard's slice of a program, on the shard's thread, under
+    inference mode (thread-local), on the shard's stream after the inputs'
+    `ready` event, taking turns at the host with the other shards on a
+    card. The count and verdict outputs come back as host values, synced on
+    this stream alone, after the turn is given up. Returns (outputs, done
+    event or None, (start, end) in s or as CUDA events)."""
+
+    def host(out):
+        return tuple(int(o) if kind == "count" else bool(o) if kind == "all" else o for o, kind in zip(out, reduce))
+
+    with torch.inference_mode():
+        if stream is None:
+            t0 = time.perf_counter()
+            out = host(body(*part))
+            return out, None, (t0, time.perf_counter())
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            for leaf in _leaves(part):
+                leaf.record_stream(stream)
+            start = _event(timing)
+            start.record(stream)
+            turns.enter()
+            MK.AFTER_LAUNCH.hook = turns.pass_on
+            try:
+                out = body(*part)
+            finally:
+                MK.AFTER_LAUNCH.hook = None
+                turns.leave()
+            done = _event(timing)
+            done.record(stream)
+            return host(out), done, (start, done)
 
 
 def _cat_grid(a, b):
@@ -100,9 +254,11 @@ class SlotCryptoPlane:
       sig_ok     [V]  bool: per-partial verify AND group verify
       total_ok   int: count of fully valid lanes over every shard
 
-    mesh: the list of devices make_mesh returns (None: the card). Packed
-    inputs live on the first device; a program moves each shard's slice to
-    its device and gathers the sliced outputs back on the first.
+    mesh: the list of devices make_mesh returns, or make_mesh_2d's rows
+    (None: every visible card). Packed inputs live on the first device; a
+    program moves each shard's slice to its device, runs the shards at
+    once, and gathers the sliced outputs back on the first. close() ends
+    the shards' threads.
     """
 
     # canonical duty shapes: lane 1 catches the SMALLEST bucket (a lone
@@ -112,8 +268,9 @@ class SlotCryptoPlane:
     PREWARM_RECOMBINE_LANES = (1, 16, 64)
 
     def __init__(self, mesh, t: int, ctx: ModCtx | None = None, fr_ctx: ModCtx | None = None):
-        self.mesh = make_mesh(mesh)
+        self.mesh, self.hosts = _layout(mesh)
         self.device = self.mesh[0]
+        self._shards = _Shards(self.mesh) if len(self.mesh) > 1 else None
         self.t = t
         self.ctx = ctx or limb.FP
         self.fr_ctx = fr_ctx or limb.FR
@@ -141,17 +298,24 @@ class SlotCryptoPlane:
         # per-family times sum to about the flush's device span. None (the
         # default) costs one attribute check a dispatch.
         self.on_program = None
+        # per-shard timing hook: callable(family, [(start, end) ms]), each
+        # shard's device interval of a program on two or more shards,
+        # measured from the event its inputs were ready at (host
+        # perf_counter spans on CPU shards). None (the default) keeps the
+        # shards' events untimed.
+        self.on_shards = None
 
     # -- dispatch ---------------------------------------------------------
 
     def _program(self, name: str, body, reduce: tuple[str, ...]):
-        """A program: `body` on each shard's slice of the packed inputs in
-        turn, on the shard's device, under inference mode in the calling
-        thread (grad mode is thread-local). Each output reduces by its
-        `reduce` entry: "cat" gathers the slices on the first device,
-        "count" sums the per-shard counts on the host, "all" ANDs the
-        per-shard verdicts. One output comes back bare, several as a
-        tuple."""
+        """A program: `body` on each shard's slice of the packed inputs, on
+        the shard's device, under inference mode (grad mode is
+        thread-local). One shard runs in the calling thread; two or more
+        run at once, each on its own thread and stream (_run_shards). Each
+        output reduces by its `reduce` entry: "cat" gathers the slices on
+        the first device in shard order, "count" sums the per-shard counts
+        on the host, "all" ANDs the per-shard verdicts. One output comes
+        back bare, several as a tuple."""
 
         def run(*args):
             lanes = int(_first_leaf(args).shape[0])
@@ -159,26 +323,80 @@ class SlotCryptoPlane:
             if lanes % shards:
                 raise ValueError(f"{lanes} lanes do not split over {shards} shards")
             self._dispatched.add((name, lanes))
-            per = lanes // shards
-            outs = []
-            with torch.inference_mode():
-                for k, dev in enumerate(self.mesh):
-                    part = map_point(lambda a, k=k, dev=dev: a[k * per : (k + 1) * per].to(dev), args)
-                    outs.append(body(*part))
+            if self._shards is None:
+                with torch.inference_mode():
+                    outs = [body(*map_point(lambda a: a.to(self.device), args))]
+            else:
+                outs = self._run_shards(name, body, args, lanes // shards, reduce)
             res = tuple(self._reduce(kind, [o[i] for o in outs]) for i, kind in enumerate(reduce))
             return res[0] if len(res) == 1 else res
 
         run.__name__ = name
         return run
 
+    def _run_shards(self, name: str, body, args, per: int, reduce: tuple[str, ...]) -> list:
+        """Every shard's slice of `args` at once, one shard a thread and a
+        stream. The slices are cut (and moved to their cards) on the
+        caller's streams, and each shard's stream waits on an event
+        recorded after them; the caller's streams wait on each shard's
+        last event before they read its outputs. Every tensor read on a
+        stream it was not made on is marked with record_stream, so the
+        caching allocator does not hand its memory out early. Waits for
+        every shard, then raises the lowest-numbered shard's error."""
+        streams = self._shards.streams()
+        timing = self.on_shards is not None
+        futures = []
+        for k, dev in enumerate(self.mesh):
+            part = map_point(lambda a, k=k, dev=dev: a[k * per : (k + 1) * per].to(dev), args)
+            ready = None
+            if streams[k] is not None:
+                ready = _event(timing)
+                ready.record(torch.cuda.current_stream(dev))
+            futures.append((ready, self._shards.submit(
+                k, _run_shard, body, part, streams[k], ready, reduce, timing, self._shards.turns
+            )))
+        concurrent.futures.wait([f for _, f in futures])
+        for _, f in futures:
+            if f.exception() is not None:
+                raise f.exception()
+        outs, spans = [], []
+        for (ready, f), dev in zip(futures, self.mesh):
+            out, done, span = f.result()
+            if done is not None:
+                caller = torch.cuda.current_stream(dev)
+                caller.wait_event(done)
+                for o, kind in zip(out, reduce):
+                    if kind == "cat":
+                        for leaf in _leaves(o):
+                            leaf.record_stream(caller)
+                if timing:
+                    done.synchronize()
+                    span = (ready.elapsed_time(span[0]), ready.elapsed_time(span[1]))
+            outs.append(out)
+            spans.append(span)
+        if timing:
+            if streams[0] is None:
+                t0 = min(s for s, _ in spans)
+                spans = [((s - t0) * 1e3, (e - t0) * 1e3) for s, e in spans]
+            self.on_shards(f"mesh/{name}", spans)
+        return outs
+
     def _reduce(self, kind: str, parts: list):
         if kind == "count":
-            return sum(int(p) for p in parts)
+            # within each host's shards first, then over the hosts
+            per = len(parts) // self.hosts
+            return sum(sum(int(p) for p in parts[h * per : (h + 1) * per]) for h in range(self.hosts))
         if kind == "all":
             return all(bool(p) for p in parts)
         if len(parts) == 1:
             return parts[0]
         return zip_point(lambda *xs: torch.cat([x.to(self.device) for x in xs]), *parts)
+
+    def close(self) -> None:
+        """End the shards' threads (idempotent; a program after it raises).
+        Dropping the plane ends them too."""
+        if self._shards is not None:
+            self._shards.close()
 
     def _timed(self, family: str, lanes: int, fn):
         """Run one program dispatch (with its sync) under the timing hook.
@@ -706,10 +924,10 @@ _ANALYSIS_PLANE_T = 3  # the canonical threshold of the registry's plane
 
 def register_analysis_families(mesh=None, t: int = _ANALYSIS_PLANE_T) -> SlotCryptoPlane:
     """Build the canonical plane (one shard: a program does not change
-    with the shard count, only its split) on `mesh` (None: the card) and
+    with the shard count, only its split) on `mesh` (None: the first card) and
     register its programs in the blsops family registry. Idempotent.
     Called by core/cryptoplane.kernel_inventory()."""
-    plane = SlotCryptoPlane(mesh, t)
+    plane = SlotCryptoPlane(make_mesh()[:1] if mesh is None else mesh, t)
     for name, fam in plane.kernel_families().items():
         if name not in blsops.kernel_families():
             blsops.register_kernel_family(name, fam.build, fam.sentinel)

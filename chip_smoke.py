@@ -7,13 +7,17 @@
     python3 chip_smoke.py --dkg                   # the kernel build and phase 9 alone
     python3 chip_smoke.py --ceremony              # the kernel build and phase 9's cluster ceremony alone
     python3 chip_smoke.py --adversarial           # the kernel build and phase 11 alone, on a plane of its own
+    python3 chip_smoke.py --shards                # the kernel build and phase 8b alone (its own host setup)
+    python3 chip_smoke.py --shards 1 --vals F     # phase 8b on mesh 1 alone, the host setup from pickle F
+    python3 chip_smoke.py --shards 1 --shard-part attribution  # and only its attribution and trace
 
 Phases; any failure exits non-zero and prints no result. Phases 1-4, 6,
 7, 8, 11 and 12 run in order in this process; phase 5 with phase 7's int8
-half (`--int8`), phase 9 (`--dkg`) and phase 10 (`--node-sweep`) run in
-processes of their own, started after phase 4 and run on the same card
-beside phases 6-8 (each phase is bound by the host, the card idle most of
-the time), and this process waits for all three after phase 8:
+half (`--int8`), phase 8b (`--shards`), phase 9 (`--dkg`) and phase 10
+(`--node-sweep`) run in processes of their own, started after phase 4 and
+run on the same card beside phases 6-8 (each phase is bound by the host,
+the card idle most of the time), and this process waits for all four after
+phase 8:
 
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. the kernel build from charon_tpu_torch/csrc, one nvcc per source, all
@@ -27,11 +31,16 @@ the time), and this process waits for all three after phase 8:
      tiles and waves (1, 2, 3, 31, 32, 33, a large launch's tile less one,
      the tile and one more, an odd count above one wave of resident
      blocks); each kernel's time (alone: 200 queued launches of its C
-     entry point; through its wrapper; plain) beside its bound;
+     entry point; through its wrapper; plain) beside its bound; then the
+     unfused Fp2 route: one mixed fptower.fp2_batch level (mul, sqr,
+     mul_fp) at 8,192 and 65,536 rows under each configuration, unfused
+     (KernelConfig(fp2_fusion=False)) exactly equal to fused, launching
+     one K1 Fp (K4 Fp under int8) and no K2, K3, K5 or K6;
   4. the host setup of the duty (keys, 4-of-7 splits, partials), then the
      startup tuner on the card: autotune.resolve("force") over the
      mxu_mont axis (K1-K3 vs K4-K6) at the duty's lane count, its timings,
-     spread and choice;
+     spread and choice, then the same over the fp2_fusion axis (one
+     stacked Fp2 level, fused K2/K3 vs unfused around K1);
   5. in a process of its own (`--int8`, with its own host setup from the
      same seed), the int8 configuration (KernelConfig(mxu_mont=True).apply()): first
      the device decode batteries: decompress_g2_batch and
@@ -69,9 +78,29 @@ the time), and this process waits for all three after phase 8:
      each group signature's bytes equal to phase 6's; a forged partial
      attributed (step_dec, verify_dec) and the point-input programs
      (step_rlc, step, verify_rlc, verify) on 64 validators; a 64-validator
-     flush under the int8 configuration. All ten programs must run, each
-     part launching its configuration's kernels only; each flush's stats
-     and each program's walls and lanes;
+     flush under the int8 configuration and one under the unfused Fp2
+     route (K1 Fp and K1 Fr, never K2 or K3). All ten programs must run,
+     each part launching its configuration's kernels only; each flush's
+     stats and each program's walls and lanes;
+ 8b. in processes of their own, one a mesh (`--shards K --vals F`, each
+     reading phase 4's host setup from a pickle; two for a mesh of four
+     or more shards, `--shard-part slot` and `attribution`), the plane's shards at
+     once (one host thread and one CUDA stream a shard, the threads taking
+     turns at the host) on two meshes sharing the one card, ["cuda:0"] * 2
+     and make_mesh_2d(2, ["cuda:0"] * 4), and over every card where there
+     are more: the mesh's own warm-up programs (g1dec, h2c) over one bucket
+     of the slot's keys (64 validators' keys and messages, every shard's
+     device interval recorded), the rest of the point caches warmed
+     through a one-shard plane (no prewarm), the full-width slot as ONE
+     flush, every verdict True and each group
+     signature's bytes the host signature of the group secret; each
+     shard's device interval of each program (CUDA events) and their
+     overlap; a forged partial on the last shard attributed by step_dec
+     and verify_dec on 64 validators, with step_dec's count the live rows
+     less the forged one; a verify flush of those 64 validators' lanes
+     traced by torch.profiler: K1-K3 on at least as many streams as
+     shards, and the card's idle share; K1-K3 launched, K4-K6 never; each
+     mesh's flush wall beside phase 8's one-shard wall;
   9. in a process of its own (`--dkg`), the DKG and resharing ceremonies (dkg/frost.py, dkg/reshare.py and
      the engine's ceremony calls): one node's round-2 verification waves
      of a 4-of-7 FROST DKG over 2,000 validators (BASELINE config 4's
@@ -159,7 +188,8 @@ the time), and this process waits for all three after phase 8:
  13. the kernels JSON line (with each kernel's launches in the full-width
      plane slot, or in the int8 plane flush for K4-K6, in the three
      full-width DKG waves, or the int8 share wave for K4-K6, in the node
-     phase and in phase 11), then the result line.
+     phase, in phase 11, in phase 8b's slot flushes and in phase 8's
+     unfused flush), then the result line.
 
 The script runs only on a CUDA card: without one it exits 2 before doing
 anything.
@@ -173,10 +203,12 @@ import hashlib
 import json
 import multiprocessing
 import os
+import pickle
 import random
 import subprocess
 import sys
 import time
+import warnings
 
 # Peaks of the NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit
 # (NVIDIA's data sheet, dense): HBM rate; the int32
@@ -216,6 +248,9 @@ KERNELS = {
 }
 INT8_KERNELS = tuple(k for k in KERNELS if "_mxu" in k)
 DEFAULT_KERNELS = tuple(k for k in KERNELS if "_mxu" not in k)
+# the unfused Fp2 route's kernels, and the fused Fp2 kernels it never reaches
+UNFUSED_KERNELS = ("mont_mul_fp", "mont_mul_fr")
+FP2_KERNELS = ("fp2_mul", "fp2_sqr")
 # decode and hash-to-curve do no Fr product
 INT8_DECODE_KERNELS = tuple(k for k in INT8_KERNELS if not k.endswith("_fr"))
 DEFAULT_DECODE_KERNELS = tuple(k for k in DEFAULT_KERNELS if not k.endswith("_fr"))
@@ -442,6 +477,48 @@ def check_kernels(seed: int) -> dict:
     return results
 
 
+FP2_ROUTE_ROWS = (8192, 65536)
+
+
+def check_fp2_route(seed: int) -> None:
+    """Phase 3's unfused Fp2 route: one mixed fptower.fp2_batch level (mul,
+    sqr, mul_fp) at FP2_ROUTE_ROWS rows under each configuration, the
+    unfused route (KernelConfig(fp2_fusion=False)) exactly equal to the
+    fused one and launching only K1 Fp (K4 Fp under int8): never K2, K3,
+    K5 or K6. Each route's time (CUDA events over 20 levels) beside it."""
+    import torch
+
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.ops import fptower as T
+    from charon_tpu_torch.ops import limb
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    for rows in FP2_ROUTE_ROWS:
+        _, (a0, a1, b0, b1) = _operands("fp2_mul", rows, seed + rows, "cuda")
+        level = [("mul", (a0, a1), (b0, b1)), ("sqr", (b0, a1)), ("mul_fp", (a1, b1), a0)]
+        for label, mxu in (("default", False), ("int8", True)):
+            only = "mont_mul_mxu_fp" if mxu else "mont_mul_fp"
+            try:
+                KernelConfig(mxu_mont=mxu).apply()
+                fused = T.fp2_batch(limb.FP, level)
+                fused_ms = _time_ms(lambda: T.fp2_batch(limb.FP, level), 20)
+                KernelConfig(mxu_mont=mxu, fp2_fusion=False).apply()
+                MK.reset_launches()
+                unfused = T.fp2_batch(limb.FP, level)
+                torch.cuda.synchronize()
+                launches = dict(MK.LAUNCHES)
+                unfused_ms = _time_ms(lambda: T.fp2_batch(limb.FP, level), 20)
+            finally:
+                KernelConfig().apply()
+            if not all(torch.equal(x, y) for f, u in zip(fused, unfused) for x, y in zip(f, u)):
+                raise AssertionError(f"fp2 route {label}: the unfused level differs from the fused one at {rows} rows")
+            if launches[only] != 1 or any(n for k, n in launches.items() if k != only):
+                raise AssertionError(f"fp2 route {label}: the unfused level launched {launches}, want {only} once")
+            log(f"fp2 route {label} at {rows} rows: unfused == fused, one {only} launch; a level fused "
+                f"{fused_ms:.4f} ms, unfused {unfused_ms:.4f} ms")
+    MK.reset_launches()
+
+
 def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
     """Phase 12: each kernel's time (C entry point alone, CUDA events over
     200 queued launches) at the DUTY_SHAPES row counts its duty launched it at
@@ -478,6 +555,7 @@ def time_duty_shapes(results: dict, rows: dict, seed: int) -> None:
 # what "on" and "off" run on each axis the script tunes
 TUNER_VALUES = {
     "mxu_mont": ("K4-K6", "K1-K3"),
+    "fp2_fusion": ("fused K2/K3", "unfused around K1"),
     "ceremony_straus": ("Straus", "per-lane ladder"),
     "ceremony_msm_w8": ("window 8", "window 4"),
 }
@@ -714,8 +792,9 @@ def duty_message(v: int) -> bytes:
 
 
 def make_validator(args):
-    """One validator's key, 4-of-7 split, and the partials of a seeded
-    4-subset of its shares over its duty message (host bigints)."""
+    """One validator's key, 4-of-7 split, the partials of a seeded 4-subset
+    of its shares over its duty message, its first signer's share, and the
+    host signature of the group secret over the message."""
     seed, v = args
     from charon_tpu_torch.crypto import bls, g1g2, shamir
 
@@ -731,6 +810,7 @@ def make_validator(args):
         {i: g1g2.g1_to_bytes(bls.sk_to_pk(shares[i])) for i in signers},
         {i: g1g2.g2_to_bytes(g1g2.g2_mul(h, shares[i])) for i in signers},
         shares[signers[0]],
+        g1g2.g2_to_bytes(g1g2.g2_mul(h, sk)),
     )
 
 
@@ -977,13 +1057,37 @@ def _verify_lanes(vals: list) -> list:
     return [(v[2][i], v[1], v[3][i]) for v in vals for i in sorted(v[3])]
 
 
-def _forged(vals: list, seed: int):
+def slot_calls(vals: list) -> tuple[list, list]:
+    """The full-width slot of validators `vals`: (every partial as
+    PLANE_VERIFY_CALLS verify calls, every validator as two recombine
+    duties), the submissions of one coalesced flush."""
+    lanes = _verify_lanes(vals)
+    per = -(-len(lanes) // PLANE_VERIFY_CALLS)
+    half = len(vals) // 2
+    return [lanes[i : i + per] for i in range(0, len(lanes), per)], [_rows(vals[:half]), _rows(vals[half:])]
+
+
+def check_slot(label: str, vals: list, vres: list, rres: list, want_sigs: list | None = None) -> None:
+    """Raise unless every verdict of a slot flush (coalesced_flush of
+    slot_calls(vals)) is True and each group signature's bytes equal
+    `want_sigs` (None: the host signature of each group secret)."""
+    want = [v[5] for v in vals] if want_sigs is None else want_sigs
+    if not all(all(r) for r in vres) or not all(all(ok) for _, ok in rres):
+        raise AssertionError(f"{label}: a verdict is False")
+    sigs = [s for r_sigs, _ in rres for s in r_sigs]
+    if sigs != want:
+        bad = [v for v in range(len(vals)) if sigs[v] != want[v]]
+        raise AssertionError(f"{label}: group signatures of validators {bad[:8]} differ from the wanted ones")
+
+
+def _forged(vals: list, seed: int, r: int | None = None):
     """(lanes, rows, forged lane, forged row) of validators `vals` with one
-    partial forged: validator r's first signer signs another duty's
-    message, in its verify lane and in its recombine row."""
+    partial forged: validator r's (seeded if None) first signer signs
+    another duty's message, in its verify lane and in its recombine row."""
     from charon_tpu_torch.crypto import bls, g1g2
 
-    r = random.Random(f"plane/{seed}").randrange(len(vals))
+    if r is None:
+        r = random.Random(f"plane/{seed}").randrange(len(vals))
     bad = g1g2.g2_to_bytes(bls.sign(vals[r][4], duty_message(r + 1)))
     lanes = _verify_lanes(vals)
     k = 4 * r  # the first signer's lane of validator r
@@ -993,7 +1097,7 @@ def _forged(vals: list, seed: int):
     return lanes, rows, k, r
 
 
-def _flush(coal, verify_calls: list, recombine_calls: list, walls: dict, label: str) -> tuple:
+def coalesced_flush(coal, verify_calls: list, recombine_calls: list, walls: dict, label: str) -> tuple:
     """One concurrent burst of verify and recombine submissions through the
     coalescer: (verify results, recombine results, flush wall s, launches,
     families dispatched). The counts are set to 0 just before and read
@@ -1040,10 +1144,13 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
     verify_dec), the point-input programs through a decode_mode "python"
     coalescer (step_rlc, step, verify_rlc, verify), then a flush under the
     int8 configuration. All ten programs must run; each part launches its
-    configuration's kernels and none of the other's. Returns the full-width
-    slot's launches (default kernels) and the int8 flush's (int8 ones), and
-    the coalescer, still open with its caches warm, and its program walls,
-    for phase 11; the caller closes it."""
+    configuration's kernels and none of the other's; then a flush under the
+    unfused Fp2 route (KernelConfig(fp2_fusion=False): K1 Fp and K1 Fr,
+    never K2 or K3). Returns the full-width slot's launches (default
+    kernels) and the int8 flush's (int8 ones), the unfused flush's
+    launches, the slot's flush wall, and the coalescer, still open with its
+    caches warm, and its program walls, for phase 11; the caller closes
+    it."""
     import asyncio
     import dataclasses
 
@@ -1090,20 +1197,13 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
             json.dumps(report))
 
         # the coalesced slot at full width
-        lanes = _verify_lanes(vals)
-        per = -(-len(lanes) // PLANE_VERIFY_CALLS)
-        calls = [lanes[i : i + per] for i in range(0, len(lanes), per)]
-        duties = [_rows(vals[: n // 2]), _rows(vals[n // 2 :])]
+        calls, duties = slot_calls(vals)
+        lanes = [lane for call in calls for lane in call]
         stats.clear()
-        vres, rres, slot_wall, slot_launches, fams = _flush(coal, calls, duties, walls, "slot")
+        vres, rres, slot_wall, slot_launches, fams = coalesced_flush(coal, calls, duties, walls, "slot")
         if fams != ["mesh/step_rlc_dec", "mesh/verify_rlc_dec"]:
             raise AssertionError(f"plane slot: programs {fams}")
-        if not all(all(r) for r in vres) or not all(all(ok) for _, ok in rres):
-            raise AssertionError("plane slot: a verdict is False")
-        sigs = [s for r_sigs, _ in rres for s in r_sigs]
-        if sigs != duty_sigs:
-            bad = [v for v in range(n) if sigs[v] != duty_sigs[v]]
-            raise AssertionError(f"plane slot: group signatures of validators {bad[:8]} differ from the duty's")
+        check_slot("plane slot", vals, vres, rres, duty_sigs)
         [slot_stats] = stats
         if slot_stats.decode_mode != "device" or slot_stats.lanes != len(lanes) + n:
             raise AssertionError(f"plane slot: {slot_stats}")
@@ -1114,7 +1214,7 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
         # attribution: one forged partial in a verify lane and a recombine row
         small = vals[:PLANE_SMALL]
         f_lanes, f_rows, k, r = _forged(small, seed)
-        vres, rres, _, launches, fams = _flush(coal, [f_lanes], [f_rows], walls, "attribution")
+        vres, rres, _, launches, fams = coalesced_flush(coal, [f_lanes], [f_rows], walls, "attribution")
         if fams != ["mesh/step_dec", "mesh/step_rlc_dec", "mesh/verify_dec", "mesh/verify_rlc_dec"]:
             raise AssertionError(f"plane attribution: programs {fams}")
         if [i for i, ok in enumerate(vres[0]) if not ok] != [k]:
@@ -1129,7 +1229,7 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
         # the point-input programs: the host decode of the signatures
         host = SlotCoalescer(plane, impl=coal.impl, decode_mode="python", stats_hook=stats.append)
         try:
-            vres, rres, _, launches, fams = _flush(host, [f_lanes], [f_rows], walls, "point inputs")
+            vres, rres, _, launches, fams = coalesced_flush(host, [f_lanes], [f_rows], walls, "point inputs")
         finally:
             host.close()
         if fams != ["mesh/step", "mesh/step_rlc", "mesh/verify", "mesh/verify_rlc"]:
@@ -1143,7 +1243,7 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
         # the int8 configuration
         KernelConfig(mxu_mont=True).apply()
         try:
-            vres, rres, _, int8_launches, fams = _flush(
+            vres, rres, _, int8_launches, fams = coalesced_flush(
                 coal, [_verify_lanes(small)], [_rows(small)], walls, "int8"
             )
         finally:
@@ -1153,6 +1253,20 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
         if rres[0][0] != duty_sigs[: len(small)]:
             raise AssertionError("plane int8: group signatures differ from the duty's")
         _check_launches(int8_launches, "plane int8", INT8_KERNELS, DEFAULT_KERNELS)
+
+        # the unfused Fp2 route: Fp2 levels around K1's product, no K2/K3
+        KernelConfig(fp2_fusion=False).apply()
+        try:
+            vres, rres, _, unfused_launches, fams = coalesced_flush(
+                coal, [_verify_lanes(small)], [_rows(small)], walls, "unfused fp2"
+            )
+        finally:
+            KernelConfig().apply()
+        if fams != ["mesh/step_rlc_dec", "mesh/verify_rlc_dec"] or not all(vres[0]) or not all(rres[0][1]):
+            raise AssertionError(f"plane unfused fp2: programs {fams} or a False verdict")
+        if rres[0][0] != duty_sigs[: len(small)]:
+            raise AssertionError("plane unfused fp2: group signatures differ from the duty's")
+        _check_launches(unfused_launches, "plane unfused fp2", UNFUSED_KERNELS, FP2_KERNELS + INT8_KERNELS)
 
         if ran != {f"mesh/{name}" for name in M.FAMILIES}:
             raise AssertionError(f"plane: programs that never ran: {sorted({f'mesh/{x}' for x in M.FAMILIES} - ran)}")
@@ -1168,7 +1282,220 @@ def run_plane(vals: list, duty_sigs: list, seed: int) -> tuple:
     finally:
         MK.reset_launches()
     launches = {name: (int8_launches if name in INT8_KERNELS else slot_launches)[name] for name in KERNELS}
-    return launches, coal, walls
+    return launches, unfused_launches, slot_wall, coal, walls
+
+
+# ---------------------------------------------------------------------------
+# Phase 8b: the plane's shards at once
+# ---------------------------------------------------------------------------
+
+SHARDS_RESULT = "shards_result"  # the key of the --shards process's result line
+# the parts of a mesh's phase: the slot (after the rest of the warm-up), and
+# the attribution with the traced flush; a mesh of SPLIT_SHARDS or more
+# runs them in two processes, each on its own GIL (their walls grow with
+# the shard count: on 2 x 2 of one H100 the slot took 126 s and the
+# attribution with its trace 409 s, PERF.md section 6)
+SHARD_PARTS = ("slot", "attribution")
+SPLIT_SHARDS = 4
+# the K1-K3 kernels' names in a profiler trace
+_TRACE_KERNELS = ("charon::mont_mul", "charon::fp2_mul_kernel", "charon::fp2_sqr_kernel")
+
+
+def shard_meshes() -> list:
+    """(label, mesh) of the shard phase: two shards sharing cuda:0, a 2 x 2
+    make_mesh_2d layout on it, and, where there is more than one card,
+    every card."""
+    import torch
+
+    from charon_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    meshes = [("2 shards", ["cuda:0"] * 2), ("2x2", make_mesh_2d(2, ["cuda:0"] * 4))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+    return meshes
+
+
+def _overlap(spans: list) -> dict:
+    """Per-shard device intervals [(start, end) ms] of one program: their
+    union, their sum, and the concurrency sum / union (1 in turn, the
+    shard count at full overlap)."""
+    union, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            union += e - max(s, end)
+            end = e
+    busy = sum(e - s for s, e in spans)
+    return {"union_ms": union, "sum_ms": busy, "concurrency": busy / union if union else 0.0}
+
+
+def _trace_streams(prof, wall_s: float) -> tuple[set, float]:
+    """The streams a torch.profiler trace shows K1-K3 kernels on, and the
+    card's idle share over `wall_s`: 1 - the union of every device
+    interval / the wall."""
+    from torch.autograd import DeviceType
+
+    streams, spans = set(), []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        rid = e.device_resource_id()
+        if rid not in streams and any(k in e.name() for k in _TRACE_KERNELS):
+            streams.add(rid)
+    busy = _overlap([(s / 1e6, e / 1e6) for s, e in spans])["union_ms"] / 1e3
+    return streams, 1 - busy / wall_s
+
+
+def run_shards(vals: list, seed: int, which=None, parts=SHARD_PARTS) -> dict:
+    """The slot crypto plane with its shards at once, on each of
+    shard_meshes() (those of index in `which`, None: all), with a
+    SlotCoalescer over SlotCryptoPlane(mesh) and the device decode: the
+    mesh's own warm-up programs (g1dec, h2c) into a fresh TorchImpl's
+    point caches over one bucket of the slot's keys, the keys and messages
+    of the first PLANE_SMALL validators, each shard's device interval
+    recorded for both programs; the rest of its caches warmed through a
+    one-shard plane (no prewarm); then the full-width slot as ONE flush of
+    verify_rlc_dec and step_rlc_dec (every verdict True, each group
+    signature's bytes the host signature of the group secret), each
+    shard's device interval of each program (CUDA events) and their
+    overlap; then a forged partial on the last shard attributed by step_dec
+    and verify_dec on PLANE_SMALL validators, the count step_dec returns
+    the live rows less the forged one; then a flush of their valid verify
+    lanes (verify_rlc_dec alone) under torch.profiler: K1-K3 on at least as
+    many streams as the mesh has shards, and the card's idle share. K1 Fp,
+    K1 Fr, K2 and K3 launch in the slot and the attribution, K4-K6 never.
+    Returns {label: {"wall": s, "launches": {...}}}."""
+    import asyncio
+
+    import torch
+
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.core.cryptoplane import SlotCoalescer
+    from charon_tpu_torch.ops import mont_kernels as MK
+    from charon_tpu_torch.parallel import SlotCryptoPlane
+    from charon_tpu_torch.tbls.torch_impl import TorchImpl
+
+    KernelConfig().apply()
+    n = len(vals)
+    want_sigs = [v[5] for v in vals]
+
+    def keys(vs):
+        return [v[0] for v in vs] + [pk for v in vs for pk in v[2].values()], [v[1] for v in vs]
+
+    def warm_up(coal, vs, what):
+        pubkeys, messages = keys(vs)
+        warm = stage(what, lambda: asyncio.run(coal.warm_caches(pubkeys, messages)), {})
+        if any(warm[name]["invalid"] or warm[name]["python"] for name in ("pubkey", "message")):
+            raise AssertionError(f"{what}: {warm}")
+        log(f"{what}:", json.dumps(warm))
+
+    out = {}
+    for i, (label, mesh) in enumerate(shard_meshes()):
+        if which is not None and i not in which:
+            continue
+        impl = TorchImpl()  # point caches of the mesh's own, filled by its warm-up
+        plane = SlotCryptoPlane(mesh, t=4)
+        shards = plane.shard_count()
+        walls: dict = {}
+        spans: dict = {}
+        plane.on_program = lambda fam, seconds, lanes: walls.setdefault(fam, []).append((seconds, lanes))
+        plane.on_shards = lambda fam, s: spans.setdefault(fam, []).append(s)
+        coal = SlotCoalescer(plane, impl=impl)
+        res = out[label] = {"shards": shards}
+        try:
+            # the mesh's warm-up programs on one bucket, on the shards' streams
+            warm_up(coal, vals[:PLANE_SMALL], f"shards {label} warm-up ({PLANE_SMALL} validators on the mesh)")
+            for fam in ("mesh/g1dec", "mesh/h2c"):
+                if len(spans.get(fam, [[]])[0]) != shards:
+                    raise AssertionError(f"shards {label} warm-up: {fam} ran on shards {spans.get(fam)}, want {shards}")
+                for s in spans[fam]:
+                    o = _overlap(s)
+                    log(f"shards {label} warm-up {fam}: shard device intervals (ms) "
+                        + ", ".join(f"[{a:.1f}, {b:.1f}]" for a, b in s)
+                        + f"; concurrency {o['concurrency']:.3f} of {shards}")
+            if "slot" in parts:
+                # the rest through a one-shard plane (cached keys are skipped)
+                warm_coal = SlotCoalescer(SlotCryptoPlane(["cuda:0"], t=4), impl=impl)
+                try:
+                    warm_up(warm_coal, vals[PLANE_SMALL:], f"shards {label} warm-up (the rest, one shard)")
+                finally:
+                    warm_coal.close()
+                spans.clear()
+                calls, duties = slot_calls(vals)
+                lanes = [lane for call in calls for lane in call]
+                vres, rres, wall, launches, fams = coalesced_flush(coal, calls, duties, walls, f"shards {label} slot")
+                if fams != ["mesh/step_rlc_dec", "mesh/verify_rlc_dec"]:
+                    raise AssertionError(f"shards {label} slot: programs {fams}")
+                check_slot(f"shards {label} slot", vals, vres, rres, want_sigs)
+                _check_launches(launches, f"shards {label} slot", DEFAULT_KERNELS, INT8_KERNELS)
+                overlap = {}
+                for fam, runs in sorted(spans.items()):
+                    for s in runs:
+                        overlap[fam] = _overlap(s)
+                        log(f"shards {label} {fam}: shard device intervals (ms from the inputs' ready event) "
+                            + ", ".join(f"[{a:.1f}, {b:.1f}]" for a, b in s)
+                            + f"; union {overlap[fam]['union_ms']:.1f} ms, sum {overlap[fam]['sum_ms']:.1f} ms, "
+                            f"concurrency {overlap[fam]['concurrency']:.3f} of {shards}")
+                log(f"shards {label} slot: {len(lanes)} verify lanes and {n} validators in one flush of {wall:.3f} s "
+                    f"over {shards} shards, every verdict True, {n} group signatures equal to the host's")
+                res.update(wall=wall, launches=launches, overlap=overlap)
+
+            if "attribution" in parts:
+                # attribution: a forged partial in the last shard
+                small = vals[:PLANE_SMALL]
+                f_lanes, f_rows, k, r = _forged(small, seed, r=len(small) - 1 - seed % 4)
+                counts = []
+                step_dec = plane._step_dec
+
+                def counted(*args):
+                    res = step_dec(*args)
+                    counts.append(res[2])
+                    return res
+
+                plane._step_dec = counted
+                try:
+                    vres, rres, a_wall, a_launches, fams = coalesced_flush(coal, [f_lanes], [f_rows], walls, f"shards {label} attribution")
+                finally:
+                    plane._step_dec = step_dec
+                if fams != ["mesh/step_dec", "mesh/step_rlc_dec", "mesh/verify_dec", "mesh/verify_rlc_dec"]:
+                    raise AssertionError(f"shards {label} attribution: programs {fams}")
+                if [i for i, ok in enumerate(vres[0]) if not ok] != [k]:
+                    raise AssertionError(f"shards {label} attribution: False lanes {[i for i, ok in enumerate(vres[0]) if not ok]}, want [{k}]")
+                [(a_sigs, a_oks)] = rres
+                if [i for i, ok in enumerate(a_oks) if not ok] != [r]:
+                    raise AssertionError(f"shards {label} attribution: False rows {[i for i, ok in enumerate(a_oks) if not ok]}, want [{r}]")
+                if any(a_sigs[v] != want_sigs[v] for v in range(len(small)) if v != r):
+                    raise AssertionError(f"shards {label} attribution: a valid row's group signature differs from the host's")
+                if counts != [len(small) - 1]:
+                    raise AssertionError(f"shards {label} attribution: step_dec counted {counts}, want [{len(small) - 1}]")
+                _check_launches(a_launches, f"shards {label} attribution", DEFAULT_KERNELS, INT8_KERNELS)
+                log(f"shards {label} attribution: forged lane {k} and row {r} (the last shard's) the only False ones, "
+                    f"step_dec count {counts[0]}, one flush of {a_wall:.3f} s")
+
+                # a traced flush of one program (the trace holds some 330,000
+                # device events a program a shard): the valid verify lanes of
+                # PLANE_SMALL validators, verify_rlc_dec alone
+                with warnings.catch_warnings():
+                    # the profiler warns for each kernel launched off its thread
+                    warnings.simplefilter("ignore")
+                    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        vres, _, t_wall, t_launches, fams = coalesced_flush(coal, [_verify_lanes(small)], [], walls, f"shards {label} traced")
+                        t_read = time.perf_counter()
+                    streams, idle = _trace_streams(prof, t_wall)
+                    t_read = time.perf_counter() - t_read
+                if fams != ["mesh/verify_rlc_dec"] or not all(vres[0]):
+                    raise AssertionError(f"shards {label} traced: programs {fams} or a False verdict")
+                _check_launches(t_launches, f"shards {label} traced", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
+                if len(streams) < shards:
+                    raise AssertionError(f"shards {label}: K1-K3 ran on streams {sorted(streams)}, fewer than {shards} shards")
+                log(f"shards {label} traced: one verify_rlc_dec flush of {t_wall:.3f} s (the trace read in {t_read:.1f} s), "
+                    f"K1-K3 on {len(streams)} streams {sorted(streams)}, the card's idle share {idle:.3f}")
+                res.update(attribution_wall=a_wall, traced_wall=t_wall, streams=len(streams), idle=idle)
+        finally:
+            coal.close()
+            plane.close()
+            MK.reset_launches()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2785,6 +3112,20 @@ def main(argv=None) -> int:
              "launches as one JSON line and no result line",
     )
     ap.add_argument(
+        "--shards", nargs="?", const="all", default=None, metavar="K1,K2,...",
+        help="build the kernels (or reuse a parent run's) and run only phase 8b (its own host setup, or --vals', "
+             "then the plane's shards at once on each of shard_meshes(), or on those of the given indexes); prints "
+             "its result as one JSON line and no result line",
+    )
+    ap.add_argument(
+        "--shard-part", choices=SHARD_PARTS, default=None,
+        help="with --shards: run only this part of each mesh's phase (default: both)",
+    )
+    ap.add_argument(
+        "--vals", default=None, metavar="PICKLE",
+        help="with --shards: the host setup pickled by the run that starts the process, instead of its own",
+    )
+    ap.add_argument(
         "--ceremony", action="store_true",
         help="build the kernels and run only phase 9's cluster ceremony (dkg/ceremony.run_dkg on the card); "
              "prints no result line",
@@ -2812,7 +3153,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     # the phase processes reuse the libraries their parent run built (same sources)
-    for source, report in MK.build(force=not (args.node_sweep or args.dkg or args.int8)).items():
+    for source, report in MK.build(force=not (args.node_sweep or args.dkg or args.int8 or args.shards)).items():
         log(f"nvcc {source}:")
         for line in report.splitlines():
             if "ptxas info" in line or "spill" in line:
@@ -2836,6 +3177,18 @@ def main(argv=None) -> int:
         if args.python_decode:
             run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
         print(json.dumps({INT8_RESULT: {"launches": launches, "rows": rows}}), flush=True)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+    if args.shards:
+        if args.vals:
+            with open(args.vals, "rb") as f:
+                vals = pickle.load(f)
+        else:
+            vals = host_setup(args.validators, args.seed, args.workers)
+        which = None if args.shards == "all" else [int(k) for k in args.shards.split(",")]
+        parts = SHARD_PARTS if args.shard_part is None else (args.shard_part,)
+        print(json.dumps({SHARDS_RESULT: run_shards(vals, args.seed, which, parts)}), flush=True)
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(0)
@@ -2873,8 +3226,10 @@ def main(argv=None) -> int:
     count_imma()
 
     results = check_kernels(args.seed)
+    check_fp2_route(args.seed)
     vals = host_setup(args.validators, args.seed, args.workers)
     run_tuner(sum(len(v[3]) for v in vals), persist=True)
+    run_tuner(sum(len(v[3]) for v in vals), axis="fp2_fusion")
     # phase 5 (with phase 7's int8 half), 9 and 10 run from here on in
     # processes of their own, on the same card beside phases 6-8 of this
     # one: every phase is host-bound
@@ -2896,6 +3251,23 @@ def main(argv=None) -> int:
         NODE_LAUNCHES, after=cluster_proc, after_log=cluster_log_path,
     )
     dkg_phase = PhaseProcess("dkg process", phase_command("--dkg", "--seed", args.seed), DKG_LAUNCHES)
+    # one process a mesh, two for a mesh of SPLIT_SHARDS or more (one a
+    # part): the shards of a mesh share the process's GIL; each reads this
+    # process's host setup from a pickle
+    vals_path = MK.BUILD_DIR / f"shards-vals-{os.getpid()}.pickle"
+    with open(vals_path, "wb") as f:
+        pickle.dump(vals, f)
+    shards_phases = []
+    for k, (_, mesh) in enumerate(shard_meshes()):
+        n_shards = sum(len(row) for row in mesh) if isinstance(mesh[0], (list, tuple)) else len(mesh)
+        split = n_shards >= SPLIT_SHARDS
+        for part in SHARD_PARTS if split else (None,):
+            shards_phases.append(PhaseProcess(
+                f"shards process {k}" + (f" {part}" if part else ""),
+                phase_command("--shards", k, "--seed", args.seed, "--vals", vals_path,
+                              *(["--shard-part", part] if part else [])),
+                SHARDS_RESULT,
+            ))
     int8_phase = PhaseProcess(
         "int8 process",
         phase_command("--int8", "--seed", args.seed, "--validators", args.validators, "--workers",
@@ -2913,7 +3285,7 @@ def main(argv=None) -> int:
         )
         profile_device(impl, batch, "default")
         # phase 8's coalescer stays open, caches warm, for phase 11
-        plane_launches, plane_coal, plane_walls = run_plane(vals, duty_sigs, args.seed)
+        plane_launches, unfused_launches, slot_wall, plane_coal, plane_walls = run_plane(vals, duty_sigs, args.seed)
         try:
             # phase 11 follows phases 5 and 7's int8 half, 9 and 10, with the card to itself
             t_wait = time.perf_counter()
@@ -2922,13 +3294,22 @@ def main(argv=None) -> int:
             int8_rows = {name: {int(r): n for r, n in counts.items()} for name, counts in int8["rows"].items()}
             dkg_launches = dkg_phase.wait()
             node_launches = node_phase.wait()
-            log(f"phases 5, 9 and 10 (processes of their own): waited {time.perf_counter() - t_wait:.1f} s "
+            shards: dict = {}
+            for phase in shards_phases:
+                for label, r in phase.wait().items():
+                    shards.setdefault(label, {}).update(r)
+            log(f"phases 5, 8b, 9 and 10 (processes of their own): waited {time.perf_counter() - t_wait:.1f} s "
                 "after phase 8")
+            log(f"slot flush walls ({args.validators} validators, one flush): 1 shard (phase 8) {slot_wall:.3f} s; "
+                + "; ".join(f"{label} ({r['shards']} shards) {r['wall']:.3f} s" for label, r in shards.items()))
             adversarial_launches = run_adversarial(plane_coal, plane_walls, args.seed)
         finally:
             plane_coal.close()
     finally:
         int8_phase.stop()
+        for phase in shards_phases:
+            phase.stop()
+        vals_path.unlink(missing_ok=True)
         node_phase.stop()
         dkg_phase.stop()
         if cluster_proc.poll() is None:
@@ -2945,6 +3326,8 @@ def main(argv=None) -> int:
             "launches": launches[name], **results[name], "library_ms": None,
             "plane_launches": plane_launches[name], "dkg_launches": dkg_launches[name],
             "node_launches": node_launches[name], "adversarial_launches": adversarial_launches[name],
+            "shard_launches": sum(r["launches"][name] for r in shards.values()),
+            "unfused_launches": unfused_launches[name],
             "status": "ported",
         })
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)

@@ -5,8 +5,8 @@ cold tune then a pure hit, force re-tune, corrupt and truncated profiles, a
 stale digest, the env pin outranking the profile, hosts without a card,
 warm_boot_ready, the append-only profile schema against its blessed
 snapshot (held here as a literal), and the port's own rules — apply()
-raises for a value it has no route for, and a flip takes effect on the
-next call. No real micro-bench runs here: resolve() gets device="cpu" and
+raises for a value it has no route for, routes every value of the
+fp2_fusion axis, and a flip takes effect on the next call. No real micro-bench runs here: resolve() gets device="cpu" and
 an injected bench.
 """
 
@@ -21,6 +21,7 @@ import torch
 from charon_tpu_torch.core import autotune
 from charon_tpu_torch.core.autotune import KernelConfig, PlaneConfigError
 from charon_tpu_torch.core.cryptoplane import kernel_inventory
+from charon_tpu_torch.ops import fptower as T
 from charon_tpu_torch.ops import limb as L
 from charon_tpu_torch.ops import mont_kernels as MK
 from charon_tpu_torch.ops import msm as MSM
@@ -65,6 +66,7 @@ def _kernel_flags():
     MSM.set_ceremony_straus(None)
     MSM.set_ceremony_window(None)
     L.set_mxu(None)
+    T.set_fp2_fusion(True)
 
 
 def fake_bench(tuned_msm=True, tuned_mxu=False):
@@ -75,7 +77,6 @@ def fake_bench(tuned_msm=True, tuned_mxu=False):
         choices = {
             "msm": (tuned_msm, "tuned"),
             "mxu_mont": (tuned_mxu, "tuned"),
-            "fp2_fusion": (True, "inapplicable"),
             "ceremony_straus": (True, "inapplicable"),
             "ceremony_msm_w8": (True, "inapplicable"),
         }
@@ -110,7 +111,7 @@ def test_cold_tune_persists_then_pure_hit(tmp_path):
     assert events_of(log) == ["miss", "rebuilt"]
     prof = autotune.load_profile(path)
     assert prof["platform"] == "cpu" and prof["torch_version"] == torch.__version__
-    assert prof["families"] == sorted(kernel_inventory("cpu")) and prof["sources"]["fp2_fusion"] == "inapplicable"
+    assert prof["families"] == sorted(kernel_inventory("cpu")) and prof["sources"]["fp2_fusion"] == "default"
     assert {"blsops/verify_grouped_rlc", "mesh/step_rlc_dec", "mesh/g1dec"} <= set(prof["families"])
 
     def explode(**kw):  # a hit must not micro-bench
@@ -343,14 +344,35 @@ def test_schema_append_and_bumped_requirement_allowed():
 # -- KernelConfig routing ------------------------------------------------------
 
 
-@pytest.mark.parametrize("field,value", [("fp2_fusion", False), ("pallas", False)])
+@pytest.mark.parametrize("field,value", [("pallas", False)])
 def test_apply_raises_for_a_value_without_a_route(field, value):
     """No route means no silent ignore: apply() raises and changes
     nothing."""
     KernelConfig(mxu_mont=True).apply()
     with pytest.raises(autotune.UnroutableConfigError, match=field):
-        KernelConfig(mxu_mont=False, msm=False, **{field: value}).apply()
-    assert L._mxu_active(L.FP) and MSM.msm_active()
+        KernelConfig(mxu_mont=False, msm=False, fp2_fusion=False, **{field: value}).apply()
+    assert L._mxu_active(L.FP) and MSM.msm_active() and T._FP2_FUSION
+
+
+def test_apply_routes_fp2_fusion_off_and_back(monkeypatch):
+    """fp2_fusion=False routes the unfused Fp2 level (one stacked K1
+    product, no K2/K3) instead of raising, and the default flips it back."""
+    calls = []
+    for name in ("mont_mul_plain", "fp2_mul_plain", "fp2_sqr_plain"):
+        def spy(*args, _fn=getattr(MK, name), _name=name):
+            calls.append(_name)
+            return _fn(*args)
+
+        monkeypatch.setattr(MK, name, spy)
+    a = torch.as_tensor(L.pack_mont_host(L.FP, [3, 5]))
+    ops = [("mul", (a, a), (a, a)), ("sqr", (a, a))]
+    assert KernelConfig(fp2_fusion=False).apply() is True
+    unfused = T.fp2_batch(L.FP, ops)
+    assert calls == ["mont_mul_plain"]
+    KernelConfig().apply()
+    fused = T.fp2_batch(L.FP, ops)
+    assert [c for c in calls[1:] if c.startswith("fp2")] == ["fp2_mul_plain", "fp2_sqr_plain"]
+    assert all(torch.equal(x, y) for u, f in zip(unfused, fused) for x, y in zip(u, f))
 
 
 def test_apply_flip_takes_effect_on_next_call(monkeypatch):
@@ -390,11 +412,13 @@ def test_env_overrides_parse_and_apply_env():
 
 
 def test_candidates_cover_every_axis():
-    """msm, mxu_mont and the two ceremony axes bench on the card; the axis
-    with no route in the port (fp2_fusion) is registered as inapplicable."""
+    """Every tunable axis benches wherever the kernels run: msm, mxu_mont,
+    fp2_fusion (fused K2/K3 vs the unfused level) and the two ceremony
+    axes; on the CPU their plain versions stand in."""
     assert set(autotune.CANDIDATES) == set(KernelConfig.TUNABLE)
     applicable = {f for f, c in autotune.CANDIDATES.items() if c.applicable()}
-    assert applicable == {"msm", "mxu_mont", "ceremony_straus", "ceremony_msm_w8"}
+    assert applicable == {"msm", "mxu_mont", "fp2_fusion", "ceremony_straus", "ceremony_msm_w8"}
+    assert set(autotune.boot_candidates()) == applicable - {"fp2_fusion"}
     with pytest.raises(ValueError):
         autotune.register_candidate(autotune.Candidate("pallas", "", lambda: True, lambda n, d: None))
 
@@ -411,12 +435,16 @@ def _fake_candidate(field, seconds, ran):
     return autotune.Candidate(field, "fake", lambda: True, builder)
 
 
+def _never_built(lanes, device):
+    raise AssertionError("an inapplicable axis was benched")
+
+
 def test_micro_bench_picks_the_faster_value_greedily():
     ran = []
     cands = {
         "msm": _fake_candidate("msm", {True: 0.02, False: 0.0}, ran),
         "mxu_mont": _fake_candidate("mxu_mont", {True: 0.0, False: 0.02}, ran),
-        "fp2_fusion": autotune.CANDIDATES["fp2_fusion"],
+        "fp2_fusion": autotune.Candidate("fp2_fusion", "inapplicable here", lambda: False, _never_built),
     }
     log = []
     choices, timings, runs = autotune.micro_bench(cands, lanes=8, reps=2, observer=make_obs(log), device="cpu")
@@ -427,6 +455,28 @@ def test_micro_bench_picks_the_faster_value_greedily():
     # the msm winner is carried into the mxu_mont trials
     assert MSM.msm_active() is False
     assert [f["axis"] for k, f in log if k == "bench"] == ["msm", "msm", "mxu_mont", "mxu_mont"]
+
+
+def test_boot_benches_fp2_fusion_only_on_request(monkeypatch):
+    """A boot (no candidates named) neither benches nor prewarms the
+    fp2_fusion axis, registered with at_boot=False; naming it benches it."""
+    ran = []
+
+    def builder(lanes, device):
+        ran.append(("fp2_fusion", lanes, T._FP2_FUSION))
+        return lambda: None
+
+    monkeypatch.setattr(autotune, "CANDIDATES", {
+        "msm": _fake_candidate("msm", {True: 0.0, False: 0.0}, ran),
+        "fp2_fusion": autotune.Candidate("fp2_fusion", "fake", lambda: True, builder, at_boot=False),
+    })
+    choices, _, runs = autotune.micro_bench(lanes=8, reps=1, device="cpu")
+    assert set(choices) == {"msm"} and runs == 2 and [r[0] for r in ran] == ["msm", "msm"]
+    assert [axis for axis, _, _ in autotune.aot_prewarm(lanes=(4,), device="cpu")] == ["msm"]
+    ran.clear()
+    choices, _, runs = autotune.micro_bench({"fp2_fusion": autotune.CANDIDATES["fp2_fusion"]}, lanes=8, reps=1,
+                                            device="cpu")
+    assert set(choices) == {"fp2_fusion"} and ran == [("fp2_fusion", 8, True), ("fp2_fusion", 8, False)]
 
 
 def test_micro_bench_keeps_the_default_when_the_win_is_within_the_spread():
@@ -471,9 +521,11 @@ def test_mxu_mont_bench_runs_the_kernels_the_axis_reroutes(monkeypatch, mxu_mont
 def test_aot_prewarm_walks_the_lane_ladder():
     ran = []
     cands = {"mxu_mont": _fake_candidate("mxu_mont", {True: 0.0, False: 0.0}, ran),
-             "fp2_fusion": autotune.CANDIDATES["fp2_fusion"]}
+             "fp2_fusion": autotune.CANDIDATES["fp2_fusion"],
+             "msm": autotune.Candidate("msm", "inapplicable here", lambda: False, _never_built)}
     report = autotune.aot_prewarm(KernelConfig(mxu_mont=True), lanes=(3, 16), candidates=cands, device="cpu")
-    assert [(axis, lanes) for axis, lanes, _ in report] == [("mxu_mont", 4), ("mxu_mont", 16)]
+    assert [(axis, lanes) for axis, lanes, _ in report] == [
+        ("mxu_mont", 4), ("mxu_mont", 16), ("fp2_fusion", 4), ("fp2_fusion", 16)]
     assert ran == [("mxu_mont", 3, True), ("mxu_mont", 16, True)]
 
 

@@ -56,9 +56,9 @@ def _port_modules():
 
 
 def test_port_imports_without_jax_or_reference_package():
-    """Every module of the port, chip_smoke and kernel_ab import with jax
+    """Every module of the port, chip_smoke, kernel_ab and plane_ab import with jax
     and charon_tpu made unimportable."""
-    mods = _port_modules() + ["charon_tpu_torch", "chip_smoke", "kernel_ab"]
+    mods = _port_modules() + ["charon_tpu_torch", "chip_smoke", "kernel_ab", "plane_ab"]
     assert {"charon_tpu_torch.cmd.cli", "charon_tpu_torch.app.run"} <= set(mods)  # the node binary
     code = (
         "import sys, importlib\n"
@@ -80,7 +80,7 @@ def test_port_imports_without_jax_or_reference_package():
 
 
 def test_port_sources_name_no_jax_or_reference_import():
-    files = sorted((ROOT / "charon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    files = sorted((ROOT / "charon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "plane_ab.py"]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
