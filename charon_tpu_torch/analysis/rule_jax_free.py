@@ -6,7 +6,8 @@ Two invariants, one rule:
 1. **The package is jax-free.** `charon_tpu_torch` runs where jax is
    not installed (the CUDA machine) and holds its own copy of every
    module it needs from the JAX package `charon_tpu`. So no file under
-   `charon_tpu_torch/`, and not `chip_smoke.py`, may import `jax`,
+   `charon_tpu_torch/`, and none of the port's root scripts
+   (`chip_smoke.py`, `kernel_ab.py`, `plane_ab.py`), may import `jax`,
    `jaxlib` or `charon_tpu` at ANY scope: module scope, function scope,
    guarded by `try/except ImportError` or under `if TYPE_CHECKING:`,
    or through `importlib.import_module`/`__import__` of a literal name.
@@ -44,7 +45,7 @@ from charon_tpu_torch.analysis.lint import (
 )
 
 _PACKAGE_PREFIX = "charon_tpu_torch/"
-_PACKAGE_FILES = frozenset({"chip_smoke.py"})
+_PACKAGE_FILES = frozenset({"chip_smoke.py", "kernel_ab.py", "plane_ab.py"})
 _FORBIDDEN = ("jax", "jaxlib", "charon_tpu")
 _HOST_FORBIDDEN = _FORBIDDEN + ("torch",)
 _JAX_FREE_PREFIXES = ("charon_tpu_torch/analysis/",)

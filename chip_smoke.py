@@ -10,14 +10,34 @@
     python3 chip_smoke.py --shards                # the kernel build and phase 8b alone (its own host setup)
     python3 chip_smoke.py --shards 1 --vals F     # phase 8b on mesh 1 alone, the host setup from pickle F
     python3 chip_smoke.py --shards 1 --shard-part attribution  # and only its attribution and trace
+    python3 chip_smoke.py --exit-check [TRIES]    # the kernel build and the exit check alone
+    python3 chip_smoke.py --stop-check            # the node phase stopped mid-slot, then this process's exit
+    python3 chip_smoke.py --profile F             # phase 7's default half alone, the host setup from pickle F
+    python3 chip_smoke.py --age-fresh F           # a fresh process's age probe, a label a line on stdin
+    python3 chip_smoke.py --age-ab idle|trace [--vals F]  # the age A/B: a trace or a sleep, then age turns
 
 Phases; any failure exits non-zero and prints no result. Phases 1-4, 6,
 7, 8, 11 and 12 run in order in this process; phase 5 with phase 7's int8
 half (`--int8`), phase 8b (`--shards`), phase 9 (`--dkg`) and phase 10
 (`--node-sweep`) run in processes of their own, started after phase 4 and
 run on the same card beside phases 6-8 (each phase is bound by the host,
-the card idle most of the time), and this process waits for all four after
-phase 8:
+the card idle most of the time), as does the exit check (`--exit-check`),
+and this process waits for all five after phase 8. The age probe
+(app/ageprobe.py) reads this process after phase 4, before any of them
+starts, after phases 6, 7 and 8 and after phase 11 (and the int8
+process after its decode batteries and at its end): each loop step's
+wall, thread CPU and CUDA-event time, its launches (the sqrt-chain step
+exactly one K3 and one K2, or K6 and K5 under int8, or the script
+fails), gc, RSS, the allocator and the threads; cProfile at the first and
+last probe; the last against the first ("age drift"); then this process
+against a fresh one over the same partials, in turns ("age turns").
+
+The exit check: six children (testutil/exitcheck.py), each holding a plane
+over ["cuda:0"] * 2 with its h2c program in flight, or an open coalescer
+over it with a verify flush in flight, end by returning from main, by
+sys.exit(1) and by an uncaught exception, without close(); each must exit
+with its own code, never a signal, within 120 s, its work ended or raised
+and no shard thread alive at exit.
 
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. the kernel build from charon_tpu_torch/csrc, one nvcc per source, all
@@ -67,7 +87,10 @@ phase 8:
   6. the default configuration (KernelConfig()): the decode batteries, the
      warm-up and the duty again — K1-K3 must launch, K4-K6 never;
   7. a torch.profiler trace of four main-path loop bodies under each
-     configuration (kernel time, idle share, top kernels);
+     configuration (kernel time, idle share, top kernels), each the last
+     work of its process: the default half in a process of its own
+     (`--profile`, awaited after phase 6), the int8 half at the end of the
+     int8 process (a process that has traced stays slower at every launch);
   8. the slot crypto plane (parallel/mesh.SlotCryptoPlane on the card)
      under its coalescer (core/cryptoplane.SlotCoalescer, the device
      decode): the boot warm-up through the plane's g1dec and h2c programs,
@@ -205,8 +228,11 @@ import multiprocessing
 import os
 import pickle
 import random
+import re
+import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -960,47 +986,35 @@ def run_duty(vals: list, seed: int, label: str, launched: tuple, idle: tuple, de
     return timings, launches, rows, impl, batch, group_sigs
 
 
-def profile_device(impl, batch, label: str) -> None:
+PROFILE_RESULT = "profile"  # the key of the --profile process's result line
+
+
+def duty_steps(vals: list) -> tuple:
+    """(engine, app/ageprobe.loop_steps over every partial of `vals`), on
+    an engine of its own under the configuration in force."""
+    from charon_tpu_torch.app.ageprobe import loop_steps
+    from charon_tpu_torch.ops.blsops import BlsEngine
+
+    engine = BlsEngine()
+    return engine, loop_steps(engine, [s for v in vals for s in v[3].values()])
+
+
+def profile_device(steps: list, label: str) -> dict:
     """Where the device time goes in the loop bodies that make up the
-    main path, over every partial (4096 lanes at full width): one step of
-    the 255-bit G2 [r]P ladder of the host decode's subgroup check (double,
-    add, select), one step of the G2 sqrt chain of the device decode (Fp2
-    square and multiply), one step of its static psi ladder (a double; 5 of
-    its 63 steps also add), and one step of the final exponentiation's
-    x-chain over 9 lanes (tower arithmetic). Per step: wall time untraced,
-    kernel time traced by torch.profiler, the idle share of the wall (one
-    stream, so kernels never overlap), and the top kernels."""
+    main path (duty_steps), over every partial (4096 lanes at full width):
+    one step of the 255-bit G2 [r]P ladder of the host decode's subgroup
+    check, one step of the G2 sqrt chain of the device decode, one step of
+    its static psi ladder, and one step of the final exponentiation's
+    x-chain over 9 lanes. Per step: wall time untraced, kernel time traced
+    by torch.profiler, the idle share of the wall (one stream, so kernels
+    never overlap), and the top kernels; returns {step: [wall ms, kernel
+    launches, kernels busy ms, idle share]}. A process that has traced with
+    torch.profiler stays slower at every launch after it (PERF.md section
+    6, PR 16), so the profile is the last work of its process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from charon_tpu_torch.ops import curve as C
-    from charon_tpu_torch.ops import fptower as T
-
-    eng = impl.engine
-    f2 = C.g2_ops(eng.ctx)
-    points, _ = eng.decompress_g2_batch([s for p in batch for s in p.values()])
-    proj = C.affine_to_point(f2, C.g2_pack(eng.ctx, points, eng.device))
-    f12 = T.fp12_one(eng.ctx, (9,), eng.device)
-
-    def ladder_step():
-        acc = C.point_double(f2, proj)
-        return C.point_select(f2, torch.ones(len(points), dtype=torch.bool, device=eng.device), C.point_add(f2, acc, proj), acc)
-
-    def sqrt_chain_step():
-        return T.fp2_mul(eng.ctx, T.fp2_sqr(eng.ctx, proj[0]), proj[1])
-
-    def psi_ladder_step():
-        return C.point_double(f2, proj)
-
-    def chain_step():
-        return T.fp12_mul(eng.ctx, T.fp12_cyclotomic_sqr(eng.ctx, f12), f12)
-
-    steps = (
-        (f"g2_ladder_step_x{len(points)}", ladder_step),
-        (f"g2_sqrt_chain_step_x{len(points)}", sqrt_chain_step),
-        (f"psi_ladder_step_x{len(points)}", psi_ladder_step),
-        ("final_exp_chain_step_x9", chain_step),
-    )
+    out = {}
     with torch.inference_mode():
         for name, step in steps:
             step()
@@ -1024,6 +1038,145 @@ def profile_device(impl, batch, label: str) -> None:
                 f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f} (a step, mean of 5)")
             for e in top:
                 log(f"  {e.self_device_time_total / 1e3 / 5:8.3f} ms {e.count / 5:7.1f}x  {e.key[:70]}")
+            out[name] = [wall * 1e3, launches, busy * 1e3, 1 - busy / wall]
+    return out
+
+
+def profile_process(vals_path: str) -> int:
+    """The --profile process: phase 7's default half, profile_device over
+    the partials pickled at `vals_path` under the default configuration;
+    prints its result as one JSON line."""
+    from charon_tpu_torch.core.autotune import KernelConfig
+
+    KernelConfig().apply()
+    with open(vals_path, "rb") as f:
+        _, steps = duty_steps(pickle.load(f))
+    print(json.dumps({PROFILE_RESULT: profile_device(steps, "default")}), flush=True)
+    return 0
+
+
+def make_age_probe(vals: list):
+    """The age probe (app/ageprobe.AgeProbe) over duty_steps(vals)."""
+    from charon_tpu_torch.app.ageprobe import AgeProbe
+
+    engine, steps = duty_steps(vals)
+    return AgeProbe(steps, engine.device, engine.ctx)
+
+
+def age_probe(probe, label: str, profiled: bool = False) -> dict:
+    """One probe, logged as one line ("age probe <label>: {...}"), and with
+    `profiled` each step's cProfile summary ("age profile <label>: ...")."""
+    got = probe.probe(label)
+    log(f"age probe {label}:", json.dumps(got))
+    if profiled:
+        log(f"age profile {label}:", json.dumps(probe.profile()))
+    return got
+
+
+AGE_FRESH = "age_fresh"  # the key of the --age-fresh process's probe lines
+AGE_TURNS = 3  # probes of each process in age_turns
+
+
+def age_fresh(vals_path: str) -> int:
+    """The --age-fresh process: the age probe over the partials pickled at
+    `vals_path`, under the default configuration, one probe for each label
+    read from stdin, each printed as one JSON line; 0 once stdin ends."""
+    from charon_tpu_torch.core.autotune import KernelConfig
+
+    KernelConfig().apply()
+    with open(vals_path, "rb") as f:
+        probe = make_age_probe(pickle.load(f))
+    try:
+        for label in sys.stdin:
+            print(json.dumps({AGE_FRESH: probe.probe(label.strip())}), flush=True)
+    finally:
+        probe.close()
+    return 0
+
+
+def age_turns(probe, vals_path) -> None:
+    """This process's loop steps against a fresh process's (--age-fresh)
+    over the same partials, in turns on the same card and host (this,
+    fresh, fresh, this, ...), AGE_TURNS probes each: a process slowed by
+    its age shows a ratio above 1 here, while the host's own drift moves
+    both sides of a turn alike. Logs each step's medians and their ratio."""
+    proc = subprocess.Popen(phase_command("--age-fresh", vals_path), stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+
+    def fresh(label: str) -> dict:
+        proc.stdin.write(label + "\n")
+        proc.stdin.flush()
+        for line in proc.stdout:
+            if line.startswith("{" + json.dumps(AGE_FRESH)):
+                got = json.loads(line)[AGE_FRESH]
+                log(f"age probe {label}:", json.dumps(got))
+                return got
+            _emit(f"  fresh process {line}")
+        raise AssertionError(f"age turns: the fresh process ended with {proc.wait()}")
+
+    sides: dict = {"aged": [], "fresh": []}
+    try:
+        for turn in range(AGE_TURNS):
+            for side in ("aged", "fresh") if turn % 2 == 0 else ("fresh", "aged"):
+                label = f"{side} turn {turn}"
+                sides[side].append(age_probe(probe, label) if side == "aged" else fresh(label))
+        proc.stdin.close()
+        if proc.wait(timeout=60) != 0:
+            raise AssertionError(f"age turns: the fresh process exited {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for name in sides["aged"][0]["steps"]:
+        aged, young = (statistics.median(p["steps"][name]["wall_ms"] for p in sides[k]) for k in ("aged", "fresh"))
+        log(f"age turns {name}: this process {aged:.3f} ms, a fresh one {young:.3f} ms, ratio {aged / young:.3f} "
+            f"(medians of {AGE_TURNS} turns)")
+
+
+AGE_AB_SLEEP = 15.0  # s the idle side of age_ab waits, about as long as a trace of the four steps
+
+
+def age_ab(mode: str, vals: list) -> int:
+    """The age A/B (`--age-ab idle|trace`): in this process, a probe, then
+    a torch.profiler trace of the loop steps (profile_device) or a sleep as
+    long, a second probe, and age_turns against a fresh process. Run idle,
+    trace, trace, idle in one call: a trace that slows the process shows
+    in the trace runs' turns alone."""
+    from charon_tpu_torch.core.autotune import KernelConfig
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    KernelConfig().apply()
+    MK.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = MK.BUILD_DIR / f"age-ab-vals-{os.getpid()}.pickle"
+    with open(path, "wb") as f:
+        pickle.dump(vals, f)
+    probe = make_age_probe(vals)
+    try:
+        before = age_probe(probe, f"{mode} before")
+        if mode == "trace":
+            profile_device(probe.steps, "age-ab")
+        else:
+            time.sleep(AGE_AB_SLEEP)
+        age_drift(before, age_probe(probe, f"{mode} after"))
+        age_turns(probe, path)
+    finally:
+        probe.close()
+        path.unlink(missing_ok=True)
+    return 0
+
+
+def age_drift(first: dict, last: dict) -> None:
+    """Each step's last probe against its first: median wall and thread CPU
+    ms a step, and their ratios."""
+
+    def ratio(a, b):
+        return f"{b / a:.3f}x" if a else "no ratio"
+
+    for name, a in first["steps"].items():
+        b = last["steps"][name]
+        log(f"age drift {name}, {first['label']} -> {last['label']}: wall {a['wall_ms']:.3f} -> {b['wall_ms']:.3f} ms "
+            f"({ratio(a['wall_ms'], b['wall_ms'])}), thread CPU {a['cpu_ms']:.3f} -> {b['cpu_ms']:.3f} ms "
+            f"({ratio(a['cpu_ms'], b['cpu_ms'])})")
 
 
 # ---------------------------------------------------------------------------
@@ -2618,11 +2771,12 @@ class PhaseProcess:
     script's group ends it too; stop() ends it and every process it started
     (the node phase's nodes 1-6)."""
 
-    def __init__(self, label: str, cmd: list, key: str, after=None, after_log: str | None = None):
-        import threading
-
+    def __init__(self, label: str, cmd: list, key: str, after=None, after_log: str | None = None,
+                 watch: str | None = None):
         self.label, self.cmd, self.key, self.after, self.after_log = label, cmd, key, after, after_log
         self.proc, self.result, self.error = None, None, None
+        # set once a line matching the regular expression `watch` has passed through
+        self.watch, self.watched = watch, threading.Event()
         self._lock = threading.Lock()
         self._stopped = False
         self._thread = threading.Thread(target=self._run, name=label, daemon=True)
@@ -2647,6 +2801,8 @@ class PhaseProcess:
                     self.result = json.loads(line)[self.key]
                 else:
                     _emit(f"  {self.label} {line}")
+                    if self.watch is not None and re.search(self.watch, line):
+                        self.watched.set()
             rc = self.proc.wait()
             if rc != 0 or self.result is None:
                 self.error = f"{self.label}: exited {rc}" + ("" if self.result is not None else " with no result line")
@@ -2699,6 +2855,64 @@ def _descendants(pid: int) -> list:
 def phase_command(*flags) -> list:
     """This script, run again with `flags`, as a phase's process."""
     return [sys.executable, os.path.abspath(__file__), *map(str, flags)]
+
+
+# ---------------------------------------------------------------------------
+# The exit checks: a process ending with a plane's shard threads live
+# ---------------------------------------------------------------------------
+
+EXIT_RESULT = "exit_check"  # the key of the --exit-check process's result line
+EXIT_PARALLEL = 2  # children at a time, beside phases 6-8
+
+
+def exit_check(tries: int) -> int:
+    """Reproductions 1 and 2 (testutil/exitcheck) on the card, `tries` times
+    each: a child holding a plane over ["cuda:0"] * 2, its h2c program in
+    flight, or an open coalescer over it, its verify flush in flight, ends
+    by returning from main, by sys.exit(1) and by an uncaught exception,
+    without close(). Each child's exit code, signal, seconds and exit
+    report are logged; 1 unless every child ended with its own code, never
+    a signal, within exitcheck.TIME_BOUND s, its work ended or raised and
+    no shard thread alive."""
+    from charon_tpu_torch.testutil import exitcheck
+
+    t0 = time.perf_counter()
+    results = exitcheck.run_checks("cuda:0", tries=tries, parallel=EXIT_PARALLEL)
+    for r in results:
+        log("exit check:", json.dumps({k: v for k, v in r.items() if k != "stderr"}))
+    bad = exitcheck.failures(results)
+    for line in bad:
+        log("exit check FAILED:", line)
+    print(json.dumps({EXIT_RESULT: {
+        "children": len(results), "failures": len(bad), "seconds": round(time.perf_counter() - t0, 1),
+        "max_child_seconds": max(r["seconds"] for r in results),
+    }}), flush=True)
+    return 1 if bad else 0
+
+
+def stop_check(seed: int, slot: float) -> int:
+    """Reproduction 3: the node phase in a PhaseProcess on a cluster of its
+    own, stopped (stop(): every node SIGKILLed, the reader thread joined)
+    as soon as node 0 has ended a flush in slot 0, the next of the slot's
+    dependent flushes in flight; then this process returns 0 from main.
+    Logs stop()'s seconds and the threads still alive; the caller reads
+    this process's exit code."""
+    from charon_tpu_torch.ops import mont_kernels as MK
+
+    cluster_dir = str(MK.BUILD_DIR / f"stop-cluster-{os.getpid()}")
+    make_node_cluster(cluster_dir, slot)
+    phase = PhaseProcess(
+        "node process", phase_command("--node-sweep", slot, "--seed", seed, "--node-cluster", cluster_dir),
+        NODE_LAUNCHES, watch=r"node 0 flush \d+: .* ended \d",
+    )
+    if not phase.watched.wait(NODE_BOOT + 10 * slot):
+        phase.stop()
+        raise AssertionError("stop check: node 0 ended no flush in slot 0")
+    t0 = time.perf_counter()
+    phase.stop()
+    log(f"stop check: stop() took {time.perf_counter() - t0:.1f} s; threads alive "
+        f"{sorted(t.name for t in threading.enumerate())}")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3123,7 +3337,35 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--vals", default=None, metavar="PICKLE",
-        help="with --shards: the host setup pickled by the run that starts the process, instead of its own",
+        help="with --shards or --age-ab: a pickled host setup (the run that starts the process writes it), "
+             "instead of its own",
+    )
+    ap.add_argument(
+        "--exit-check", nargs="?", type=int, const=1, default=None, metavar="TRIES",
+        help="build the kernels (or reuse a parent run's) and run only the exit check (testutil/exitcheck: a "
+             "process ending with a two-shard plane's program in flight, alone and under an open coalescer, by "
+             "return, sys.exit and an uncaught exception), TRIES times each; prints its result as one JSON line "
+             "and no result line",
+    )
+    ap.add_argument(
+        "--profile", default=None, metavar="PICKLE",
+        help="phase 7's default half alone (profile_device over the partials pickled in PICKLE); prints its "
+             "result as one JSON line and no result line",
+    )
+    ap.add_argument(
+        "--age-fresh", default=None, metavar="PICKLE",
+        help="the age probe in a fresh process over the partials pickled in PICKLE, one probe for each label "
+             "read from stdin (age_turns); prints no result line",
+    )
+    ap.add_argument(
+        "--age-ab", choices=("idle", "trace"), default=None,
+        help="the age A/B alone (its own host setup, or --vals'): probe, a torch.profiler trace of the loop steps "
+             "or a sleep, probe, then turns against a fresh process; prints no result line",
+    )
+    ap.add_argument(
+        "--stop-check", action="store_true",
+        help="the node phase's process stopped (PhaseProcess.stop) once node 0 has ended a flush in slot 0, the "
+             "next in flight, then this process's own exit; prints no result line",
     )
     ap.add_argument(
         "--ceremony", action="store_true",
@@ -3153,7 +3395,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     # the phase processes reuse the libraries their parent run built (same sources)
-    for source, report in MK.build(force=not (args.node_sweep or args.dkg or args.int8 or args.shards)).items():
+    for source, report in MK.build(force=not (args.node_sweep or args.dkg or args.int8 or args.shards
+                                              or args.exit_check or args.stop_check or args.age_fresh
+                                              or args.profile or args.age_ab)).items():
         log(f"nvcc {source}:")
         for line in report.splitlines():
             if "ptxas info" in line or "spill" in line:
@@ -3172,10 +3416,13 @@ def main(argv=None) -> int:
         KernelConfig(mxu_mont=True).apply()
         vals = host_setup(args.validators, args.seed, args.workers)
         run_decode_batteries(BlsEngine(), decode_batteries(args.seed), "int8", INT8_DECODE_KERNELS, DEFAULT_KERNELS)
-        _, launches, rows, impl, batch, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
-        profile_device(impl, batch, "int8")
+        probe = make_age_probe(vals)
+        first = age_probe(probe, "int8 after its warm-up", profiled=True)
+        _, launches, rows, _, _, _ = run_duty(vals, args.seed, "int8", INT8_KERNELS, DEFAULT_KERNELS)
         if args.python_decode:
             run_duty(vals, args.seed, "int8-python-decode", INT8_KERNELS, DEFAULT_KERNELS, decode_mode="python")
+        age_drift(first, age_probe(probe, "int8 at its end", profiled=True))
+        profile_device(probe.steps, "int8")
         print(json.dumps({INT8_RESULT: {"launches": launches, "rows": rows}}), flush=True)
         sys.stdout.flush()
         sys.stderr.flush()
@@ -3192,6 +3439,19 @@ def main(argv=None) -> int:
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(0)
+    if args.exit_check:
+        return exit_check(args.exit_check)
+    if args.age_fresh:
+        return age_fresh(args.age_fresh)
+    if args.profile:
+        return profile_process(args.profile)
+    if args.age_ab:
+        if args.vals:
+            with open(args.vals, "rb") as f:
+                return age_ab(args.age_ab, pickle.load(f))
+        return age_ab(args.age_ab, host_setup(args.validators, args.seed, args.workers))
+    if args.stop_check:
+        return stop_check(args.seed, args.node_slot)
     if args.dkg:
         KernelConfig().apply()
         launches = run_dkg(args.seed)
@@ -3230,6 +3490,10 @@ def main(argv=None) -> int:
     vals = host_setup(args.validators, args.seed, args.workers)
     run_tuner(sum(len(v[3]) for v in vals), persist=True)
     run_tuner(sum(len(v[3]) for v in vals), axis="fp2_fusion")
+    # the age probe's first reading, before any phase process starts
+    KernelConfig().apply()
+    probe = make_age_probe(vals)
+    first_probe = age_probe(probe, "main after phase 4", profiled=True)
     # phase 5 (with phase 7's int8 half), 9 and 10 run from here on in
     # processes of their own, on the same card beside phases 6-8 of this
     # one: every phase is host-bound
@@ -3268,6 +3532,7 @@ def main(argv=None) -> int:
                               *(["--shard-part", part] if part else [])),
                 SHARDS_RESULT,
             ))
+    exit_phase = PhaseProcess("exit-check process", phase_command("--exit-check"), EXIT_RESULT)
     int8_phase = PhaseProcess(
         "int8 process",
         phase_command("--int8", "--seed", args.seed, "--validators", args.validators, "--workers",
@@ -3280,12 +3545,16 @@ def main(argv=None) -> int:
 
         KernelConfig().apply()
         run_decode_batteries(BlsEngine(), decode_batteries(args.seed), "default", DEFAULT_DECODE_KERNELS, INT8_KERNELS)
-        _, default_launches, default_rows, impl, batch, duty_sigs = run_duty(
+        _, default_launches, default_rows, _, _, duty_sigs = run_duty(
             vals, args.seed, "default", DEFAULT_KERNELS, INT8_KERNELS
         )
-        profile_device(impl, batch, "default")
+        age_probe(probe, "main after phase 6")
+        # phase 7's default half, in a process of its own that ends with it
+        PhaseProcess("profile process", phase_command("--profile", vals_path), PROFILE_RESULT).wait()
+        age_probe(probe, "main after phase 7")
         # phase 8's coalescer stays open, caches warm, for phase 11
         plane_launches, unfused_launches, slot_wall, plane_coal, plane_walls = run_plane(vals, duty_sigs, args.seed)
+        age_probe(probe, "main after phase 8")
         try:
             # phase 11 follows phases 5 and 7's int8 half, 9 and 10, with the card to itself
             t_wait = time.perf_counter()
@@ -3294,18 +3563,28 @@ def main(argv=None) -> int:
             int8_rows = {name: {int(r): n for r, n in counts.items()} for name, counts in int8["rows"].items()}
             dkg_launches = dkg_phase.wait()
             node_launches = node_phase.wait()
+            log("exit check (a process of its own):", json.dumps(exit_phase.wait()))
             shards: dict = {}
             for phase in shards_phases:
                 for label, r in phase.wait().items():
                     shards.setdefault(label, {}).update(r)
-            log(f"phases 5, 8b, 9 and 10 (processes of their own): waited {time.perf_counter() - t_wait:.1f} s "
+            log(f"phases 5, 8b, 9 and 10 and the exit check (processes of their own): waited {time.perf_counter() - t_wait:.1f} s "
                 "after phase 8")
             log(f"slot flush walls ({args.validators} validators, one flush): 1 shard (phase 8) {slot_wall:.3f} s; "
                 + "; ".join(f"{label} ({r['shards']} shards) {r['wall']:.3f} s" for label, r in shards.items()))
             adversarial_launches = run_adversarial(plane_coal, plane_walls, args.seed)
         finally:
             plane_coal.close()
+        # a flush of a cancelled burst may still run on a closed coalescer's
+        # device lane; the probe counts its own steps' launches alone
+        for thread in threading.enumerate():
+            if thread.name.startswith(("crypto-plane", "crypto-decode")):
+                thread.join()
+        age_drift(first_probe, age_probe(probe, "main after phase 11", profiled=True))
+        age_turns(probe, vals_path)
     finally:
+        probe.close()
+        exit_phase.stop()
         int8_phase.stop()
         for phase in shards_phases:
             phase.stop()

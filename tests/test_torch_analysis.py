@@ -12,16 +12,16 @@ package.
       the case is inverted (jax flagged everywhere in the package, torch
       allowed behind a guard or in a function of a host module);
     - `test_repo_tree_lints_clean` lints `charon_tpu/` and the reference's
-      benches; the port's gate lints `charon_tpu_torch/` and
-      `chip_smoke.py`, exactly as `python -m
-      charon_tpu_torch.analysis.lint charon_tpu_torch/ chip_smoke.py`;
+      benches; the port's gate lints `charon_tpu_torch/` and its root
+      scripts, exactly as `python -m charon_tpu_torch.analysis.lint
+      charon_tpu_torch/ chip_smoke.py kernel_ab.py plane_ab.py`;
     - `test_instrumented_point_caches_production_order_is_clean` wraps
       the reference's `tbls/tpu_impl.PointCache`; here it wraps the
       port's `tbls/torch_impl.PointCache`.
   * The port's jax-free rule flags a planted `import jax`, `from jax
     import numpy`, `import jaxlib`, `from charon_tpu import tbls` or an
     `importlib.import_module("charon_tpu...")` in any port module and in
-    chip_smoke.py, at module scope, in a function, behind `try/except
+    chip_smoke.py, kernel_ab.py and plane_ab.py, at module scope, in a function, behind `try/except
     ImportError` and under `if TYPE_CHECKING:`, and a host module whose
     import chain reaches torch; the same files without the plant lint
     clean.
@@ -99,14 +99,18 @@ def test_reference_cases_run_on_the_port():
 # -- the gate: the port's tree lints clean -------------------------------------
 
 
+ROOT_SCRIPTS = ("chip_smoke.py", "kernel_ab.py", "plane_ab.py")
+
+
 def test_repo_tree_lints_clean():
     """`python -m charon_tpu_torch.analysis.lint charon_tpu_torch/
-    chip_smoke.py` exits 0: every violation is fixed or carries an audited
-    pragma."""
-    violations, n = lint.lint_paths([str(ROOT / "charon_tpu_torch"), str(ROOT / "chip_smoke.py")])
+    chip_smoke.py kernel_ab.py plane_ab.py` exits 0: every violation is
+    fixed or carries an audited pragma."""
+    paths = [str(ROOT / "charon_tpu_torch"), *(str(ROOT / s) for s in ROOT_SCRIPTS)]
+    violations, n = lint.lint_paths(paths)
     assert n > 100  # the walk saw the tree
     assert violations == [], "\n".join(v.render() for v in violations)
-    assert lint.main([str(ROOT / "charon_tpu_torch"), str(ROOT / "chip_smoke.py")]) == 0
+    assert lint.main(paths) == 0
 
 
 def test_scope_key_keys_on_the_port_package():
@@ -145,7 +149,8 @@ def _copy_tree(tmp_path) -> pathlib.Path:
     dst = tmp_path / "repo"
     shutil.copytree(ROOT / "charon_tpu_torch", dst / "charon_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__", "_build", "*.cu", "*.cuh"))
-    shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    for script in ROOT_SCRIPTS:
+        shutil.copy(ROOT / script, dst / script)
     return dst
 
 
@@ -165,6 +170,19 @@ def test_jax_free_flags_a_planted_import_anywhere_in_the_port(tmp_path, plant):
         assert violations[0].line > lines
         path.write_text(original)
         assert lint.lint_paths([str(path)], [JaxFreeHost()])[0] == []
+
+
+@pytest.mark.parametrize("plant", ["module", "reference", "function", "guarded"])
+@pytest.mark.parametrize("script", ["kernel_ab.py", "plane_ab.py"])
+def test_jax_free_covers_the_root_scripts_beside_chip_smoke(tmp_path, script, plant):
+    """kernel_ab.py and plane_ab.py run on the card beside chip_smoke.py:
+    a jax or charon_tpu import planted in either is flagged on its line."""
+    path = _copy_tree(tmp_path) / script
+    original = path.read_text()
+    assert lint.lint_paths([str(path)], [JaxFreeHost()])[0] == []
+    path.write_text(original + "\n" + PLANTS[plant])
+    [v] = lint.lint_paths([str(path)], [JaxFreeHost()])[0]
+    assert v.rule == "jax-free-host" and v.line > len(original.splitlines())
 
 
 def test_jax_free_host_module_reaches_no_torch(tmp_path):
