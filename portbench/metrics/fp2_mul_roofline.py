@@ -1,0 +1,8 @@
+"""fp2_mul_roofline: the fp2_mul kernels' share of their roofline in the traced
+slot, % (portbench/trace.py roofline, portbench/peaks.py bounds)."""
+
+from portbench import trace
+
+
+def read(record):
+    return trace.roofline(record["trace"], "fp2_mul") if record["trace"] else None
